@@ -1,0 +1,95 @@
+"""The port's CUDA kernels: their C bindings (checked here, on any
+machine) and, on the card, each kernel against its plain PyTorch version.
+
+The card tests carry the ``cuda`` marker and skip without a CUDA device;
+on the card run ``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``.
+This file imports no JAX, so it runs where only the port is installed.
+The fuzz grids are chip_smoke.py's own.
+"""
+import re
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as CS  # noqa: E402
+from repro_torch.core import baselines as BL  # noqa: E402
+from repro_torch.core import workloads as WL  # noqa: E402
+from repro_torch.core.engine import SimParams, simulate_sweep  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.cache_pass import ops as CPASS  # noqa: E402
+from repro_torch.kernels.wavefront_scan import ops as WSCAN  # noqa: E402
+
+KERNELS = {"wave_queue": WSCAN.WAVE_QUEUE, "wave_cache": CPASS.WAVE_CACHE}
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: the kernels have no CPU form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _c_params(name):
+    """Parameter list of ``int <name>_launch(...)`` in csrc/<name>.cu."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    m = re.search(rf"int {name}_launch\((.*?)\)\s*{{", src, re.S)
+    assert m, f"{name}_launch not found"
+    return [p.strip() for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_binding_matches_the_c_signature(name):
+    """Every C parameter has a ctypes argtype of its kind: pointers and the
+    stream as c_void_p (a 32-bit int would cut them), ints, floats."""
+    params = _c_params(name)
+    kinds = [("void" if "*" in p else p.split()[0]) for p in params]
+    want = {"void": "c_void_p", "int": "c_int", "float": "c_float"}
+    got = [t.__name__ for t in KERNELS[name].argtypes]
+    assert got == [want[k] for k in kinds]
+    assert f"{name}_error_string" in (_build.CSRC / f"{name}.cu").read_text()
+
+
+def test_build_is_named_by_source_hash_in_the_repo():
+    for name in KERNELS:
+        path = _build.lib_path(name)
+        assert path.parent == ROOT / "build" / "repro_torch_kernels"
+        assert re.fullmatch(rf"lib{name}-[0-9a-f]{{12}}\.so", path.name)
+    assert "--fmad=false" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert not any("fast-math" in f or "fast_math" in f
+                   for f in _build.NVCC_FLAGS)
+
+
+@pytest.mark.cuda
+def test_wave_queue_kernel_bitwise_on_card(cuda_device):
+    assert CS.phase_wave_queue()["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+def test_wave_cache_kernel_bitwise_on_card(cuda_device):
+    assert CS.phase_wave_cache()["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+def test_engine_kernels_match_plain_on_card(cuda_device):
+    tr = WL.generate(WL.WORKLOADS["BFS"], 0)
+    args = (tr["lines"][:16], tr["pcs"][:16], tr["compute_gap"])
+    pols = (BL.BASELINE, BL.PCAL, BL.WBYP, BL.MEDIC)
+    kw = dict(n_warps=48, lanes=16, prm=SimParams(), engine="wavefront",
+              device=cuda_device)
+    before = {k: v.launches for k, v in KERNELS.items()}
+    out = simulate_sweep(*args, pols, **kw)
+    assert all(v.launches > before[k] for k, v in KERNELS.items())
+    ref = simulate_sweep(*args, pols, scan_backend="ref",
+                         cache_backend="ref", **kw)
+    for k in out:
+        if k in CS.FLOAT_REDUCTIONS:
+            torch.testing.assert_close(out[k], ref[k], rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(out[k], ref[k]), k
