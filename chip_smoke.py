@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Needs one CUDA device and the CUDA toolkit (``nvcc``); exits non-zero
-without them. Phases, one JSON line each on stdout:
+without them. Phases, one JSON line each on stdout (with its seconds):
 
   1. device   — the card's name and power limit;
-  2. build    — both CUDA kernels compiled from ``src/repro_torch/csrc``;
+  2. build    — all five CUDA kernels compiled from ``src/repro_torch/csrc``
+     (one ``nvcc`` each, all at once);
   3. wave_queue — the timing-pass kernel against its plain PyTorch
      version on the card, bitwise, on fuzzed waves; ms per call;
   4. wave_cache — the cache-pass kernel against its plain version,
@@ -14,20 +15,39 @@ without them. Phases, one JSON line each on stdout:
   5. golden   — PHASED256 and PHASED_RECOVER256 through
      ``simulate_sweep(engine="wavefront", device="cuda")`` with the
      five-policy labeling ladder: IPC within 1e-6 of the goldens, one
-     launch of each kernel per wave, and the same run with the plain
-     versions on the card (integer and per-element outputs bitwise, float
-     reductions within rtol 1e-6);
-  6. main path — HAMMER2K × {Baseline, PCAL, WByp, MeDiC} (the paper's
-     hierarchy, 2048 warps, waves of 512) with every launch count set to
-     0 just before and read just after, then HAMMER4K × MeDiC;
-  7. kernels  — one JSON object per kernel: launches in the main path,
-     max error against the plain version, times and the bound.
+     launch of each kernel per wave, and the MeDiC rung rerun with the
+     plain versions on the card (integer and per-element outputs bitwise,
+     float reductions within rtol 1e-6);
+  6. scale    — the wavefront main path: HAMMER2K × {Baseline, PCAL, WByp,
+     MeDiC} (the paper's hierarchy, 2048 warps, waves of 512) with every
+     launch count set to 0 just before and read just after, then
+     HAMMER4K × MeDiC;
+  7. medic_gather, decode_attention, flash_attention — each serving-path
+     kernel against its plain version on the card at the path's shapes
+     (the gather bitwise; the attention kernels within the reference's
+     TOL, 4e-2 in bf16 and 3e-5 in float32), with ms per call, the plain
+     version's and one PyTorch library call's ms, bytes and flops;
+  8. serving  — the serving main path: ``run_ab`` on Qwen3-1.7B at full
+     width (28 layers, random weights from a seed) with every count set
+     to 0 just before and read just after; both policies' integers equal
+     the reference's pinned ones, and each kernel's launches equal what
+     the run did (28 per prefill, 28 per decode step, 2 per offload). Then
+     MeDiC for a few steps with the kernels and with their plain versions
+     (backend="ref") in float32 at full width: snapshots equal, committed
+     K/V caches within 2e-2;
+  9. serving_profile — where the time goes: a full-width decode step
+     (host wall, device time per kernel from torch.profiler, kernels per
+     step) and a 500-step MeDiC run split by engine method;
+ 10. kernels  — one JSON object per kernel: launches on its path, max
+     error against the plain version, times, the bound and the library
+     call's time; the Pallas kernels still to port are listed beside.
 
 Then the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -39,6 +59,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import baselines as BL  # noqa: E402
 from repro_torch.core import tracegen as TG  # noqa: E402
 from repro_torch.core.classifier import ClassifierState  # noqa: E402
@@ -47,9 +68,16 @@ from repro_torch.core.engine import (SimParams, init_state,  # noqa: E402
 from repro_torch.core.engine import wavefront as WF  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cache_pass import ops as CPASS  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as DEC  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as FLASH  # noqa: E402
+from repro_torch.kernels.medic_gather import ops as GATHER  # noqa: E402
 from repro_torch.kernels.wavefront_scan import ops as WSCAN  # noqa: E402
 from repro_torch.kernels.wavefront_scan.ref import QueueCarry  # noqa: E402
 from repro_torch.policy import ops as POL, to_arrays  # noqa: E402
+from repro_torch.serving import engine as ENG  # noqa: E402
+from repro_torch.serving.pool import PoolConfig  # noqa: E402
+from repro_torch.serving.request import (ServeWorkload,  # noqa: E402
+                                         generate_requests)
 
 #: copies of tests/test_golden_phased.py:56-70 (wavefront engine, seed 0,
 #: default SimParams, the labeling ladder, rounded to 6 decimals)
@@ -60,9 +88,24 @@ GOLDEN_RECOVER256_IPC = {"Baseline": 0.089472, "MeDiC-stale": 0.083859,
                          "MeDiC": 0.12743, "MeDiC-fast": 0.143104,
                          "MeDiC-oracle": 0.153922}
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 non-tensor
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 non-tensor,
+#: bf16 dense tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+
+#: the reference's examples/serve_medic.py A/B as the JAX package gives it
+#: (pinned in tests/test_torch_serving_engine.py and checked against the
+#: JAX package by tests/test_torch_serving_ab.py); width-independent
+PINNED_AB = {
+    "lru": dict(steps=2000, completed=8, tokens_out=627, stall_steps=7367,
+                fetches=1940, bypassed_blocks=0),
+    "medic": dict(steps=2000, completed=23, tokens_out=1438,
+                  stall_steps=4050, fetches=1719, bypassed_blocks=1037),
+}
+SERVE_WL = ServeWorkload(n_requests=24, chat_frac=0.6)
+SERVE_POOL = PoolConfig(budget_blocks=48, block_tokens=16)
+SERVE_ECFG = ENG.EngineConfig(max_slots=4, max_len=448)
 
 KERNELS = {
     "wave_queue": dict(
@@ -71,7 +114,28 @@ KERNELS = {
     "wave_cache": dict(
         route="cuda", source="src/repro_torch/csrc/wave_cache.cu",
         replaces="src/repro/kernels/cache_pass/kernel.py:113"),
+    "medic_gather": dict(
+        route="cuda", source="src/repro_torch/csrc/medic_gather.cu",
+        replaces="src/repro/kernels/medic_gather/kernel.py:33"),
+    "paged_decode_attention": dict(
+        route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/kernel.py:75"),
+    "flash_attention": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:88"),
 }
+#: the C source of each kernel (its Kernel object's name)
+SOURCES = {"wave_queue": "wave_queue", "wave_cache": "wave_cache",
+           "medic_gather": "medic_gather",
+           "paged_decode_attention": "decode_attention",
+           "flash_attention": "flash_attention"}
+#: Pallas kernels of the reference that the port has not ported yet
+TO_PORT = [
+    dict(name="rg_lru", replaces="src/repro/kernels/rg_lru/kernel.py:41",
+         roadmap="B6"),
+    dict(name="mlstm", replaces="src/repro/kernels/mlstm/kernel.py:79",
+         roadmap="B7"),
+]
 
 DEV = torch.device("cuda")
 
@@ -313,8 +377,14 @@ def sweep(tr, policies, n_warps, **kw):
                           **kw)
 
 
+#: the labeling rung whose run is repeated with the kernels' plain versions
+#: (the reruns of all five rungs took 200 of the script's 260 s)
+PLAIN_RUNG = BL.MEDIC
+
+
 def phase_golden() -> dict:
     report = {}
+    rung = BL.LABELING_LADDER.index(PLAIN_RUNG)
     for name, golden in (("PHASED256", GOLDEN_PHASED256_IPC),
                          ("PHASED_RECOVER256", GOLDEN_RECOVER256_IPC)):
         spec = {**TG.PHASED_SPECS, **TG.PHASED_RECOVER_SPECS}[name]
@@ -333,16 +403,17 @@ def phase_golden() -> dict:
         for pol, want in golden.items():
             check(abs(ipc[pol] - want) <= 1e-6,
                   f"{name} {pol}: ipc {ipc[pol]!r} vs golden {want}")
-        ref = sweep(tr, BL.LABELING_LADDER, spec.n_warps,
-                    scan_backend="ref", cache_backend="ref")
+        ref = sweep(tr, (PLAIN_RUNG,), spec.n_warps, scan_backend="ref",
+                    cache_backend="ref")
         for k in out:
-            a, b = out[k].cpu(), ref[k].cpu()
+            a, b = out[k][rung].cpu(), ref[k][0].cpu()
             if k in FLOAT_REDUCTIONS:
                 torch.testing.assert_close(a, b, rtol=1e-6, atol=0,
                                            msg=f"{name} {k}")
             else:
                 check(torch.equal(a, b), f"{name} {k}: kernels != plain")
-        report[name] = dict(ipc=ipc, launches=c, wall_s=wall)
+        report[name] = dict(ipc=ipc, launches=c, wall_s=wall,
+                            plain_rung=PLAIN_RUNG.name)
     return report
 
 
@@ -376,6 +447,405 @@ def phase_scale() -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving path's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: the reference's kernel tolerance (tests/test_kernels.py:16)
+TOL = {torch.bfloat16: 4e-2, torch.float32: 3e-5}
+
+#: the serving path's shapes: 28 layers x 4 slots x 28 blocks of 16
+#: positions, Hkv 8, G 2, D 128
+L_, B_, P_, PAGE, HKV, G_, D_ = 28, 4, 28, 16, 8, 2, 128
+
+
+def _randn(shape, dtype, gen, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _close(out, plain, dtype, what) -> float:
+    """Max |out - plain| after checking it against the tolerance."""
+    a, b = out.float(), plain.float()
+    ok = torch.allclose(a, b, atol=TOL[dtype], rtol=TOL[dtype])
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    check(ok and bool(torch.isfinite(a).all()),
+          f"{what}: kernel vs plain max err {err} beyond {TOL[dtype]}")
+    return err
+
+
+def _sdpa(q, k, v, **kw):
+    """One PyTorch library call: q [B, Sq, H, D], k/v [B, Sk, Hkv, D]
+    (strided views, no copies) -> [B, H, Sq, D]."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        enable_gqa=True, **kw)
+
+
+def offload_table(slot: int, idx: int, dev) -> torch.Tensor:
+    """The engine's offload read: block idx of one slot in every layer."""
+    return ((torch.arange(L_, dtype=torch.int32) * B_ + slot) * P_
+            + idx).view(L_, 1).to(dev)
+
+
+def phase_medic_gather(dev=DEV) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(10)
+    n = L_ * B_ * P_
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        pool = _randn((n, PAGE, HKV, D_), dtype, gen, dev)
+        holes = torch.randint(0, n, (B_, P_), generator=gen, device=dev)
+        holes[torch.rand((B_, P_), generator=gen, device=dev) < 0.3] = -1
+        tables = [offload_table(3, 27, dev), offload_table(0, 0, dev),
+                  holes.to(torch.int32),
+                  torch.full((3, 5), -1, dtype=torch.int32, device=dev),
+                  torch.tensor([[n - 1]], dtype=torch.int32, device=dev)]
+        for tbl in tables:
+            out = GATHER.medic_gather_cuda(pool, tbl)
+            torch.cuda.synchronize()
+            plain = GATHER._ref.medic_gather_ref(pool, tbl)
+            check(torch.equal(out, plain), f"medic_gather {dtype} "
+                  f"{tuple(tbl.shape)}: kernel != plain")
+            cases += 1
+    # pages of 60 bytes take the byte route
+    pool = _randn((9, 3, 1, 5), torch.float32, gen, dev)
+    tbl = torch.tensor([[8, -1, 0], [4, 4, -1]], dtype=torch.int32,
+                       device=dev)
+    check(torch.equal(GATHER.medic_gather_cuda(pool, tbl),
+                      GATHER._ref.medic_gather_ref(pool, tbl)),
+          "medic_gather byte route: kernel != plain")
+    cases += 1
+    # timing at the path's call: one block of one slot in all 28 layers
+    pool = _randn((n, PAGE, HKV, D_), torch.bfloat16, gen, dev)
+    tbl = offload_table(2, 13, dev)
+    idx = tbl.view(-1).long()
+    ms = time_ms(lambda: GATHER.medic_gather_cuda(pool, tbl), iters=100)
+    plain_ms = time_ms(lambda: GATHER._ref.medic_gather_ref(pool, tbl))
+    library_ms = time_ms(lambda: torch.index_select(pool, 0, idx), iters=100)
+    page_bytes = PAGE * HKV * D_ * pool.element_size()
+    return dict(cases=cases, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, shape=[n, PAGE, HKV, D_],
+                bytes=2 * L_ * page_bytes + nbytes([tbl]), ops=0)
+
+
+def phase_decode_attention(dev=DEV) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n, w = B_ * P_, P_ * PAGE
+    ident = torch.arange(n, dtype=torch.int32, device=dev).view(B_, P_)
+    perm = torch.randperm(n, generator=gen, device=dev).to(
+        torch.int32).view(B_, P_)
+    holes = perm.clone()
+    holes[torch.rand((B_, P_), generator=gen, device=dev) < 0.25] = -1
+    holes[1] = -1                                  # an all-hole row
+    tables = {"path": ident, "perm": perm, "holes": holes}
+    lens_sets = [[0, 1, 15, 16], [17, 447, 448, 100], [w] * B_,
+                 [33, 250, 31, 239]]
+    err = {}
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        q = _randn((B_, HKV, G_, D_), dtype, gen, dev)
+        kp = _randn((n, PAGE, HKV, D_), dtype, gen, dev)
+        vp = _randn((n, PAGE, HKV, D_), dtype, gen, dev)
+        e = 0.0
+        for tname, tbl in tables.items():
+            for lens in lens_sets:
+                ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+                out = DEC.paged_decode_attention_cuda(q, kp, vp, tbl, ln)
+                torch.cuda.synchronize()
+                plain = DEC._ref.paged_decode_attention_ref(q, kp, vp, tbl,
+                                                            ln)
+                e = max(e, _close(out, plain, dtype,
+                                  f"decode {dtype} {tname} {lens}"))
+                cases += 1
+        err[str(dtype)] = e
+    # timing at the path's call: the ring of 4 slots as pages, mixed lengths
+    lens = [96, 208, 337, 448]
+    q = _randn((B_, HKV, G_, D_), torch.bfloat16, gen, dev)
+    kp = _randn((n, PAGE, HKV, D_), torch.bfloat16, gen, dev)
+    vp = _randn((n, PAGE, HKV, D_), torch.bfloat16, gen, dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: DEC.paged_decode_attention_cuda(q, kp, vp, ident,
+                                                         ln), iters=100)
+    plain_ms = time_ms(lambda: DEC._ref.paged_decode_attention_ref(
+        q, kp, vp, ident, ln))
+    # the library: masked SDPA over the dense ring [B, W, Hkv, D]
+    qs = q.reshape(B_, 1, HKV * G_, D_)
+    kd, vd = kp.view(B_, w, HKV, D_), vp.view(B_, w, HKV, D_)
+    mask = (torch.arange(w, device=dev)[None] < ln[:, None])[:, None, None]
+    lib = _sdpa(qs, kd, vd, attn_mask=mask)
+    _close(lib.reshape(B_, HKV, G_, D_),
+           DEC.paged_decode_attention_cuda(q, kp, vp, ident, ln),
+           torch.bfloat16, "decode library call")
+    library_ms = time_ms(lambda: _sdpa(qs, kd, vd, attn_mask=mask),
+                         iters=100)
+    row = HKV * D_ * 2                                  # one bf16 position
+    bytes_moved = (nbytes([q, ident, ln]) + 2 * row * sum(lens)
+                   + nbytes([q]))
+    ops = 4 * sum(lens) * HKV * G_ * D_
+    return dict(cases=cases, max_abs_err=err["torch.bfloat16"],
+                max_abs_err_f32=err["torch.float32"], ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, lengths=lens,
+                bytes=bytes_moved, ops=ops)
+
+
+FLASH_CASES = [  # (S, H, Hkv, D, causal, window, dtype)
+    (16, 16, 8, 128, True, None, torch.bfloat16),
+    (96, 16, 8, 128, True, None, torch.bfloat16),
+    (432, 16, 8, 128, True, None, torch.bfloat16),
+    (1024, 16, 8, 128, True, None, torch.bfloat16),
+    (96, 16, 8, 128, True, None, torch.float32),
+    (300, 16, 8, 128, True, 64, torch.bfloat16),
+    (37, 4, 1, 64, True, 8, torch.float32),
+    (50, 6, 3, 32, False, None, torch.bfloat16),
+    (1, 16, 8, 128, True, None, torch.bfloat16),
+]
+
+
+def phase_flash_attention(dev=DEV) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(12)
+    err = {"torch.bfloat16": 0.0, "torch.float32": 0.0}
+    for s, h, hkv, d, causal, window, dtype in FLASH_CASES:
+        q = _randn((1, s, h, d), dtype, gen, dev)
+        k = _randn((1, s, hkv, d), dtype, gen, dev)
+        v = _randn((1, s, hkv, d), dtype, gen, dev)
+        out = FLASH.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window)
+        torch.cuda.synchronize()
+        plain = FLASH._ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window)
+        e = _close(out, plain, dtype, f"flash S={s} H={h}/{hkv} D={d} "
+                   f"causal={causal} window={window} {dtype}")
+        err[str(dtype)] = max(err[str(dtype)], e)
+    # timing at the path's longest prefill: S = 432, H 16 / Hkv 8, D 128
+    s = 432
+    q = _randn((1, s, HKV * G_, D_), torch.bfloat16, gen, dev)
+    k = _randn((1, s, HKV, D_), torch.bfloat16, gen, dev)
+    v = _randn((1, s, HKV, D_), torch.bfloat16, gen, dev)
+    ms = time_ms(lambda: FLASH.flash_attention_cuda(q, k, v), iters=50)
+    plain_ms = time_ms(lambda: FLASH._ref.flash_attention_ref(q, k, v))
+    lib = _sdpa(q, k, v, is_causal=True).transpose(1, 2)
+    _close(lib, FLASH.flash_attention_cuda(q, k, v), torch.bfloat16,
+           "flash library call")
+    library_ms = time_ms(lambda: _sdpa(q, k, v, is_causal=True), iters=50)
+    ops = 4 * (s * (s + 1) // 2) * HKV * G_ * D_
+    return dict(cases=len(FLASH_CASES), max_abs_err=err["torch.bfloat16"],
+                max_abs_err_f32=err["torch.float32"], ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, s=s,
+                bytes=nbytes([q, k, v]) + nbytes([q]),
+                ops=ops)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the serving path
+# ---------------------------------------------------------------------------
+
+SERVING_KERNELS = {"medic_gather": GATHER.MEDIC_GATHER,
+                   "paged_decode_attention": DEC.DECODE_ATTENTION,
+                   "flash_attention": FLASH.FLASH_ATTENTION}
+
+
+def reset_serving_counts() -> None:
+    for k in SERVING_KERNELS.values():
+        k.launches = 0
+    ENG.COUNTS.reset()
+
+
+def serving_counts() -> dict:
+    return {name: k.launches for name, k in SERVING_KERNELS.items()}
+
+
+def _snaps_equal(a: dict, b: dict) -> bool:
+    if a.keys() != b.keys():
+        return False
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.shape != y.shape or not np.array_equal(
+                x, y, equal_nan=x.dtype.kind == "f"):
+            return False
+    return True
+
+
+def phase_serving(cfg=None, dev=DEV, rerun_steps: int = 96) -> dict:
+    """``run_ab`` at full width through the kernels, then MeDiC for
+    ``rerun_steps`` steps with the kernels and with their plain versions
+    (float32, so the comparison sees the kernels and not bf16 rounding
+    compounding over 28 layers)."""
+    cfg = cfg or get_config("qwen3_1_7b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_serving_counts()
+    t0 = time.perf_counter()
+    out = ENG.run_ab(cfg, SERVE_WL, SERVE_POOL, SERVE_ECFG, seed=0,
+                     device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = serving_counts()
+    eng = dataclasses.asdict(ENG.COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    ab = {p: {k: out[p][k] for k in PINNED_AB[p]} for p in PINNED_AB}
+    for p, want in PINNED_AB.items():
+        check(ab[p] == want, f"serving {p}: {ab[p]} != pinned {want}")
+    layers = cfg.num_layers
+    check(launches["flash_attention"] == layers * eng["admissions"] > 0,
+          f"flash launches {launches} vs {eng}")
+    check(launches["paged_decode_attention"] == layers * eng["decode_steps"]
+          > 0, f"decode launches {launches} vs {eng}")
+    check(launches["medic_gather"] == 2 * eng["offloads"] > 0,
+          f"gather launches {launches} vs {eng}")
+    tokens = sum(out[p]["tokens_out"] for p in out)
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = ENG.init_params(cfg32, 0, dev)
+    pool = dataclasses.replace(SERVE_POOL, policy="medic")
+    runs = {}
+    t1 = time.perf_counter()
+    for backend in ("cuda", "ref"):
+        e = ENG.ServeEngine(cfg32, SERVE_ECFG, pool, device=dev,
+                            backend=backend, params=params)
+        snap = e.run(generate_requests(SERVE_WL, seed=0),
+                     max_steps=rerun_steps)
+        runs[backend] = (snap, e._kv_leaves(), e.cache)
+        del e
+    torch.cuda.synchronize()
+    (sk, kvk, ck), (sr, kvr, cr) = runs["cuda"], runs["ref"]
+    check(_snaps_equal(sk, sr), "serving rerun: kernels' snapshot != "
+          "plain versions'")
+    check(torch.equal(ck["len"], cr["len"])
+          and torch.equal(ck["kv_pos"], cr["kv_pos"]),
+          "serving rerun: len / kv_pos differ")
+    kv_err = 0.0
+    for n in ("k", "v"):
+        check(torch.allclose(kvk[n], kvr[n], atol=2e-2, rtol=2e-2),
+              f"serving rerun: committed {n} beyond 2e-2")
+        kv_err = max(kv_err, float((kvk[n] - kvr[n]).abs().max()))
+    return dict(wall_s=wall, decode_steps=eng["decode_steps"],
+                decode_steps_per_s=eng["decode_steps"] / wall,
+                tokens_out=tokens, tokens_per_s=tokens / wall,
+                peak_gb=peak / 1e9, engine_counts=eng, launches=launches,
+                ab=ab, rerun=dict(steps=sk["steps"], dtype="float32",
+                                  max_abs_err_kv=kv_err,
+                                  tokens_out=sk["tokens_out"],
+                                  seconds=time.perf_counter() - t1))
+
+
+# ---------------------------------------------------------------------------
+# phase 9: where a full-width decode step and the serving run spend time
+# ---------------------------------------------------------------------------
+
+def _device_us(e) -> float:
+    return float(getattr(e, "self_device_time_total", 0.0)
+                 or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
+
+
+def _decode_profile(cfg, dev, steps: int = 5) -> dict:
+    """One full-width model's decode step (4 slots at lengths 96, 208, 337,
+    447 in rings of 448, pages of 16): host wall per step (synchronized),
+    and from torch.profiler the device time per step by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(0))
+    w = SERVE_ECFG.max_len
+    cache = model.init_cache(B_, ShapeConfig("serve", w, B_, "decode"))
+    lens = [96, 208, 337, 447]
+    kv = cache["stack"]["scan"]["0_layer"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for n in ("k", "v"):
+        kv[n].copy_(torch.randn(kv[n].shape, generator=gen, device=dev))
+    cache["len"] = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pos = torch.arange(w, dtype=torch.int32, device=dev)[None]
+    cache["kv_pos"] = torch.where(pos < cache["len"][:, None], pos,
+                                  -1).to(torch.int32)
+    toks = torch.zeros((B_, 1), dtype=torch.int32, device=dev)
+
+    def step():
+        nonlocal cache
+        cache["len"] = torch.tensor(lens, dtype=torch.int32, device=dev)
+        _, cache = model.decode(toks, cache, page=SERVE_POOL.block_tokens)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and _device_us(e) > 0]
+    device_us = sum(_device_us(e) for e in kern) / steps
+    top = sorted(kern, key=_device_us, reverse=True)[:8]
+    wall_ms = float(np.median(walls))
+    return dict(wall_ms=wall_ms, wall_ms_min=min(walls),
+                device_ms=device_us / 1e3,
+                device_busy_share=device_us / 1e3 / wall_ms,
+                kernels_per_step=sum(e.count for e in kern) / steps,
+                top_kernels=[dict(name=e.key[:80], count=e.count // steps,
+                                  us=_device_us(e) / steps) for e in top],
+                weight_bytes=sum(p.numel() * p.element_size()
+                                 for p in model.parameters()))
+
+
+def _engine_breakdown(cfg, dev, max_steps: int) -> dict:
+    """Host wall of a MeDiC engine run split by what it did: each engine
+    method is timed with a synchronize on both sides (so the split is
+    exact and the run a little slower than unprofiled); times are
+    exclusive (an offload inside an admission counts as offload)."""
+    params = ENG.init_params(cfg, 0, dev)
+    eng = ENG.ServeEngine(cfg, SERVE_ECFG,
+                          dataclasses.replace(SERVE_POOL, policy="medic"),
+                          device=dev, params=params)
+    spent = {"_admit": 0.0, "_decode_step": 0.0, "_offload": 0.0,
+             "_restore": 0.0}
+    calls = dict.fromkeys(spent, 0)
+    nested = []
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nested.append(0.0)
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            spent[name] += dt - nested.pop()
+            if nested:
+                nested[-1] += dt
+            calls[name] += 1
+            return out
+        return run
+    for name in spent:
+        setattr(eng, name, timed(name, getattr(eng, name)))
+    eng.pool.on_evict = eng._offload
+    t0 = time.perf_counter()
+    eng.run(generate_requests(SERVE_WL, seed=0), max_steps=max_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(steps=max_steps, wall_s=wall, seconds=spent, calls=calls,
+                host_rest_s=wall - sum(spent.values()))
+
+
+def phase_serving_profile(cfg=None, dev=DEV, engine_steps: int = 500) -> dict:
+    cfg = cfg or get_config("qwen3_1_7b")
+    return dict(decode_step=_decode_profile(cfg, dev),
+                engine=_engine_breakdown(cfg, dev, engine_steps))
+
+
+def bound(meas: dict, ops_per_s: float) -> dict:
+    """The least time for the work: bytes over HBM bandwidth or operations
+    over the peak rate of their type, whichever is larger."""
+    t_bytes = meas["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = meas["ops"] / ops_per_s * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -391,7 +861,7 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    built = _build.build_all(list(KERNELS))
+    built = _build.build_all(sorted(set(SOURCES.values())))
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: [ln.strip() for ln in v["log"].splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -400,27 +870,36 @@ def main() -> int:
     results = {}
     for phase, fn in (("wave_queue", phase_wave_queue),
                       ("wave_cache", phase_wave_cache),
-                      ("golden", phase_golden), ("scale", phase_scale)):
+                      ("golden", phase_golden), ("scale", phase_scale),
+                      ("medic_gather", phase_medic_gather),
+                      ("decode_attention", phase_decode_attention),
+                      ("flash_attention", phase_flash_attention),
+                      ("serving", phase_serving),
+                      ("serving_profile", phase_serving_profile)):
         t0 = time.perf_counter()
         results[phase] = fn()
         emit(phase, seconds=time.perf_counter() - t0, **results[phase])
-    wq, wc, scale = results["wave_queue"], results["wave_cache"], \
-        results["scale"]
-    main_path = scale["HAMMER2K"]["launches"]
 
+    # launches of each kernel on its main path: the wavefront kernels in
+    # HAMMER2K x 4 policies, the serving kernels in the full-width A/B
+    paths = {**results["scale"]["HAMMER2K"]["launches"],
+             **results["serving"]["launches"]}
+    measured = {"wave_queue": (results["wave_queue"], F32_OPS_PER_S),
+                "wave_cache": (results["wave_cache"], F32_OPS_PER_S),
+                "medic_gather": (results["medic_gather"], BF16_OPS_PER_S),
+                "paged_decode_attention": (results["decode_attention"],
+                                           BF16_OPS_PER_S),
+                "flash_attention": (results["flash_attention"],
+                                    BF16_OPS_PER_S)}
     rows = []
-    for kname, meas in (("wave_queue", wq), ("wave_cache", wc)):
-        t_bytes = meas["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = meas["ops"] / F32_OPS_PER_S * 1e3
+    for kname, (meas, peak) in measured.items():
+        check(paths[kname] > 0, f"{kname} never launched on its main path")
         rows.append(dict(
-            name=kname, **KERNELS[kname], launches=main_path[kname],
+            name=kname, **KERNELS[kname], launches=paths[kname],
             max_abs_err=meas["max_abs_err"], ms=meas["ms"],
-            plain_ms=meas["plain_ms"], bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None))
-        check(main_path[kname] > 0, f"{kname} never launched on the main "
-                                    "path")
-    print(json.dumps({"kernels": rows}), flush=True)
+            plain_ms=meas["plain_ms"], **bound(meas, peak),
+            library_ms=meas.get("library_ms")))
+    print(json.dumps({"kernels": rows, "to_port": TO_PORT}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

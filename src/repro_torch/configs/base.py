@@ -1,0 +1,160 @@
+"""Model and shape configuration, in torch's port (of ``repro.configs.base``).
+
+``ModelConfig`` keeps every field of the reference, so a config built
+here describes the same architecture as the reference's, field for field,
+and ``reduced`` cuts it to the same small size. ``get_config`` returns the
+configs the port can build; the others raise until their family is ported
+(ROADMAP A9). ``OptimizerConfig``, ``TrainConfig``, ``MeshConfig`` and
+``MedicConfig`` are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyper-parameters.
+
+    ``family`` selects the block structure:
+      dense   -- decoder-only transformer (GQA, optional SWA/qk-norm/bias)
+      moe     -- dense skeleton with MoE FFN (top-k, capacity dispatch)
+      hybrid  -- RecurrentGemma-style: RG-LRU blocks + local attention (1:2)
+      ssm     -- xLSTM: alternating mLSTM / sLSTM blocks
+      encdec  -- Whisper-style encoder-decoder (audio frontend stubbed)
+      vlm     -- Llama-3.2-Vision-style: self-attn stack + interleaved
+                 cross-attention to (stubbed) image patch embeddings
+    Only ``dense`` is ported so far.
+    """
+
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                      # 0 -> d_model // num_heads
+
+    # attention options
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    sliding_window: Optional[int] = None   # SWA width; None = full attention
+    rope_theta: float = 10000.0
+    logit_softcap: Optional[float] = None
+
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+    # hybrid (RG-LRU)
+    lru_width: int = 0
+    conv1d_width: int = 4
+    local_window: int = 2048
+    block_pattern: Tuple[str, ...] = ()    # e.g. ("rec", "rec", "attn")
+
+    # encoder-decoder
+    num_encoder_layers: int = 0
+    encoder_seq_len: int = 0               # precomputed frame embeddings
+
+    # vlm
+    cross_attn_every: int = 0              # cross-attn layer every Nth layer
+    num_image_tokens: int = 0
+
+    # numerics / misc
+    dtype: str = "bfloat16"
+    norm_eps: float = 1e-6
+    act: str = "silu"
+    tie_embeddings: bool = False
+    remat: bool = True
+
+    # MeDiC serving integration
+    kv_block_size: int = 256               # paged-KV block granularity
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding rows, padded to a multiple of 256 as in the
+        reference (so the port's tables have the reference's shape)."""
+        return _round_up(self.vocab_size, 256)
+
+    @property
+    def num_params(self) -> int:
+        """Parameter count of the port's model (dense family)."""
+        from repro_torch.models.model import count_params
+        return count_params(self)
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """A tiny same-family config for CPU tests (the reference's sizes)."""
+        small = dict(
+            num_layers=min(self.num_layers, 4),
+            d_model=64,
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 2) if self.num_kv_heads < self.num_heads else 4,
+            head_dim=16,
+            d_ff=128,
+            vocab_size=512,
+            lru_width=64 if self.lru_width else 0,
+            num_experts=min(self.num_experts, 4) if self.num_experts else 0,
+            num_experts_per_tok=min(self.num_experts_per_tok, 2) if self.num_experts_per_tok else 0,
+            num_encoder_layers=min(self.num_encoder_layers, 2),
+            encoder_seq_len=16 if self.encoder_seq_len else 0,
+            num_image_tokens=16 if self.num_image_tokens else 0,
+            cross_attn_every=2 if self.cross_attn_every else 0,
+            sliding_window=32 if self.sliding_window else None,
+            local_window=16 if self.family == "hybrid" else self.local_window,
+            kv_block_size=8,
+            remat=False,
+        )
+        small.update(overrides)
+        return dataclasses.replace(self, **small)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+ARCH_IDS = (
+    "grok_1_314b",
+    "olmoe_1b_7b",
+    "recurrentgemma_2b",
+    "h2o_danube_1_8b",
+    "qwen1_5_110b",
+    "qwen3_1_7b",
+    "granite_3_8b",
+    "whisper_tiny",
+    "llama_3_2_vision_11b",
+    "xlstm_125m",
+)
+
+#: the archs whose config module the port has (dense family, ROADMAP A9)
+PORTED_ARCHS = ("qwen3_1_7b",)
+
+
+def get_config(arch: str) -> ModelConfig:
+    arch = arch.replace("-", "_").replace(".", "_")
+    if arch not in ARCH_IDS:
+        raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    if arch not in PORTED_ARCHS:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to repro_torch yet (ROADMAP A9); "
+            f"ported: {PORTED_ARCHS}")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return mod.CONFIG

@@ -1,3 +1,3 @@
-"""Hand-written Hopper kernels of the wavefront engine, each beside its
-plain PyTorch version (``ref.py``) and behind a backend gate
+"""Hand-written Hopper kernels of the wavefront and serving engines, each
+beside its plain PyTorch version (``ref.py``) and behind a backend gate
 (``ops.py``). ``_build`` compiles ``csrc/*.cu`` at first use."""

@@ -1,0 +1,276 @@
+"""The model API, in torch (dense family of ``repro.models.model``).
+
+``build_model(cfg, device, backend)`` returns a ``Model`` (an
+``nn.Module``) with:
+  init_params(generator)       -> fills the parameters from a
+                                  ``torch.Generator``; returns state_dict
+  load_params(state)           -> adopts a state dict (no copy)
+  prefill(batch, cache)        -> (last-pos logits, cache)        [serve]
+  decode(tokens, cache, page=) -> (logits, cache)                 [serve]
+  init_cache(batch, shape_cfg) -> cache dict
+
+The cache dict always contains:
+  "stack":  per-block-kind stacked caches (KV rings), updated in place
+  "len":    [B] int32 tokens generated so far
+  "kv_pos": [B, W] int32 positions held in self-attn cache slots (-1 empty)
+
+``params_from_numpy`` carries the reference's ``Model.init_params`` pytree
+(as numpy arrays) into the port's state dict, so both packages can run the
+same weights. ``backend`` is the gate of the attention kernels
+(``"auto"`` | ``"ref"`` | ``"cuda"``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.kernels import _build
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+from repro_torch.models.stack import (StackDef, apply_stack, build_layers,
+                                      init_stack_cache)
+
+F32 = torch.float32
+I32 = torch.int32
+
+
+def _stackdef(cfg: ModelConfig) -> StackDef:
+    if cfg.family == "dense":
+        return StackDef(("layer",), cfg.num_layers, B.BLOCKS)
+    raise NotImplementedError(
+        f"model family {cfg.family!r} is not ported to repro_torch yet "
+        "(ROADMAP A9; the hybrid and ssm families also need B6/B7)")
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None, backend: str = "auto"):
+        super().__init__()
+        if backend not in _build.BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; choose from "
+                             f"{_build.BACKENDS}")
+        self.cfg = cfg
+        self.device = torch.device("cpu" if device is None else device)
+        self.backend = backend
+        self.stack = _stackdef(cfg)
+        dtype = getattr(torch, cfg.dtype)
+        # parameters start on the meta device (no storage) until
+        # init_params / load_params
+        self.embed = B._frozen(L.embed_init(
+            None, (cfg.padded_vocab, cfg.d_model), dtype))
+        self.final_norm = B._frozen(torch.empty((cfg.d_model,), dtype=F32,
+                                                device="meta"))
+        self.layers = build_layers(cfg, self.stack)
+        if not cfg.tie_embeddings:
+            self.lm_head = B._frozen(L.dense_init(
+                None, (cfg.d_model, cfg.padded_vocab), cfg.d_model, dtype))
+
+    # -- params ------------------------------------------------------------
+
+    def init_params(self, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Draw every parameter from ``gen`` (on this model's device) in a
+        fixed order: embedding, then each layer, then an untied head."""
+        cfg = self.cfg
+        if torch.device(gen.device).type != self.device.type:
+            raise ValueError(f"generator on {gen.device}, model on "
+                             f"{self.device}")
+        dtype = getattr(torch, cfg.dtype)
+        state = {"embed": L.embed_init(gen, (cfg.padded_vocab, cfg.d_model),
+                                       dtype),
+                 "final_norm": torch.zeros((cfg.d_model,), dtype=F32,
+                                           device=gen.device)}
+        for i in range(cfg.num_layers):
+            state.update(_flatten(B.dense_layer_init(gen, cfg),
+                                  f"layers.{i}."))
+        if not cfg.tie_embeddings:
+            state["lm_head"] = L.dense_init(
+                gen, (cfg.d_model, cfg.padded_vocab), cfg.d_model, dtype)
+        self.load_params(state)
+        return state
+
+    def load_params(self, state: Mapping[str, torch.Tensor]) -> None:
+        """Adopt ``state`` as the parameters (no copy; shapes, dtypes and
+        device are checked)."""
+        own = dict(self.named_parameters())
+        if set(own) != set(state):
+            raise ValueError(f"state keys differ: missing "
+                             f"{sorted(set(own) - set(state))}, unexpected "
+                             f"{sorted(set(state) - set(own))}")
+        for k, p in own.items():
+            t = state[k]
+            if t.shape != p.shape or t.dtype != p.dtype or \
+                    t.device.type != self.device.type:
+                raise ValueError(f"{k}: {t.dtype}{tuple(t.shape)} on "
+                                 f"{t.device}, want {p.dtype}"
+                                 f"{tuple(p.shape)} on {self.device}")
+        self.load_state_dict(dict(state), assign=True)
+
+    # -- shared forward ----------------------------------------------------
+
+    def _embed(self, tokens):
+        return self.embed[tokens.long()]
+
+    def _head(self, x):
+        x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        logits = (x @ w).to(F32)
+        if self.cfg.logit_softcap:
+            c = self.cfg.logit_softcap
+            logits = c * torch.tanh(logits / c)
+        return logits
+
+    def _aux_for(self, batch, mode, cache=None, tokens=None):
+        aux: Dict[str, Any] = {"mode": mode, "backend": self.backend}
+        if mode == "prefill":
+            t = tokens if tokens is not None else batch["tokens"]
+            bsz, s = t.shape
+            aux["q_pos"] = torch.arange(s, dtype=I32,
+                                        device=t.device)[None].expand(bsz, s)
+        else:
+            aux["q_pos"] = cache["len"][:, None]
+            aux["kv_pos"] = cache["kv_pos"]
+            w = cache["kv_pos"].shape[1]
+            aux["write_slot"] = cache["len"] % w
+        return aux
+
+    # -- serve -------------------------------------------------------------
+
+    @torch.no_grad()
+    def prefill(self, batch, cache):
+        """Prefill ``batch["tokens"]`` [B, S] into an empty cache. Returns
+        (last-position logits [B, V] float32, cache)."""
+        tokens = batch["tokens"]
+        aux = self._aux_for(batch, "prefill")
+        x = self._embed(tokens)
+        x, new_stack = apply_stack(self.cfg, self.stack, self.layers, x, aux,
+                                   cache["stack"])
+        logits = self._head(x[:, -1:])
+        s = tokens.shape[1]
+        w = cache["kv_pos"].shape[1]
+        kv_pos = _ring_positions(s, w).to(cache["kv_pos"].device)[None]
+        new_cache = {
+            "stack": new_stack,
+            "len": torch.full_like(cache["len"], s),
+            "kv_pos": kv_pos.expand(cache["kv_pos"].shape).clone(),
+        }
+        return logits[:, 0], new_cache
+
+    @torch.no_grad()
+    def decode(self, tokens, cache, *, page=None):
+        """tokens: [B,1]. Returns (logits [B,V] float32, cache).
+
+        Attention reads the ring through the paged decode kernel with
+        pages of ``page`` slots (``None``: the whole ring is one page); W
+        must be a multiple of ``page``. Sliding-window configs are refused:
+        their ring's masks are not a length prefix.
+        """
+        cfg = self.cfg
+        if cfg.sliding_window is not None:
+            raise NotImplementedError(
+                "decode through the paged kernel needs full attention; "
+                "sliding-window decode is not ported yet (ROADMAP A9)")
+        aux = self._aux_for(None, "decode", cache=cache, tokens=tokens)
+        b = tokens.shape[0]
+        w = cache["kv_pos"].shape[1]
+        page = w if page is None else page
+        if page < 1 or w % page:
+            raise ValueError(f"ring of {w} slots is not a whole number of "
+                             f"pages of {page}")
+        slot = aux["write_slot"]
+        rows = torch.arange(b, device=slot.device)
+        kv_pos = cache["kv_pos"].clone()
+        kv_pos[rows, slot.long()] = cache["len"]
+        aux["kv_pos"] = kv_pos
+        aux["page"] = page
+        aux["block_tbl"] = torch.arange(b * (w // page), dtype=I32,
+                                        device=slot.device).view(b, -1)
+        aux["lengths"] = torch.clamp_max(cache["len"] + 1, w).to(I32)
+        x = self._embed(tokens)
+        x, new_stack = apply_stack(cfg, self.stack, self.layers, x, aux,
+                                   cache["stack"])
+        logits = self._head(x)
+        new_cache = dict(cache)
+        new_cache.update({
+            "stack": new_stack,
+            "len": cache["len"] + 1,
+            "kv_pos": kv_pos,
+        })
+        return logits[:, 0], new_cache
+
+    # -- caches ------------------------------------------------------------
+
+    def _window(self, shape_cfg: ShapeConfig) -> int:
+        w = shape_cfg.seq_len
+        if self.cfg.sliding_window is not None:
+            w = min(w, self.cfg.sliding_window)
+        return w
+
+    def init_cache(self, batch: int, shape_cfg: ShapeConfig):
+        """An empty cache (the reference's ``filled=True`` dry-run form is
+        not ported)."""
+        dev = self.device
+        w = self._window(shape_cfg)
+        return {"stack": init_stack_cache(self.cfg, self.stack, batch,
+                                          shape_cfg, dev),
+                "len": torch.zeros((batch,), dtype=I32, device=dev),
+                "kv_pos": torch.full((batch, w), -1, dtype=I32, device=dev)}
+
+
+def _ring_positions(filled_len: int, w: int) -> torch.Tensor:
+    """Positions stored in each ring slot after `filled_len` writes."""
+    slots = np.full((w,), -1, np.int32)
+    for p in range(max(0, filled_len - w), filled_len):
+        slots[p % w] = p
+    return torch.from_numpy(slots)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _to_torch(a, device) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, as ml_dtypes gives them) as a
+    tensor of the same dtype on ``device``, exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                      device) -> Dict[str, torch.Tensor]:
+    """The reference's ``Model.init_params`` pytree (numpy leaves) as the
+    port's state dict: the stacked ``[L, ...]`` leaves of
+    ``stack.scan.0_layer`` are sliced per layer."""
+    _stackdef(cfg)          # raises for families not ported
+    state = {"embed": _to_torch(tree["embed"], device),
+             "final_norm": _to_torch(tree["final_norm"], device)}
+    if "lm_head" in tree:
+        state["lm_head"] = _to_torch(tree["lm_head"], device)
+    stacked = _flatten(tree["stack"]["scan"]["0_layer"])
+    for i in range(cfg.num_layers):
+        for k, a in stacked.items():
+            state[f"layers.{i}.{k}"] = _to_torch(np.asarray(a)[i], device)
+    return state
+
+
+def build_model(cfg: ModelConfig, device=None,
+                backend: str = "auto") -> Model:
+    """A ``Model`` for ``cfg`` whose parameters are not drawn yet (call
+    ``init_params`` or ``load_params``)."""
+    return Model(cfg, device, backend)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Parameter count of the port's model (shapes only, no storage)."""
+    return sum(p.numel() for p in Model(cfg).parameters())

@@ -22,9 +22,16 @@ from repro_torch.core import workloads as WL  # noqa: E402
 from repro_torch.core.engine import SimParams, simulate_sweep  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cache_pass import ops as CPASS  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as DEC  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as FLASH  # noqa: E402
+from repro_torch.kernels.medic_gather import ops as GATHER  # noqa: E402
 from repro_torch.kernels.wavefront_scan import ops as WSCAN  # noqa: E402
 
-KERNELS = {"wave_queue": WSCAN.WAVE_QUEUE, "wave_cache": CPASS.WAVE_CACHE}
+WAVEFRONT_KERNELS = {"wave_queue": WSCAN.WAVE_QUEUE,
+                     "wave_cache": CPASS.WAVE_CACHE}
+KERNELS = {**WAVEFRONT_KERNELS, "medic_gather": GATHER.MEDIC_GATHER,
+           "decode_attention": DEC.DECODE_ATTENTION,
+           "flash_attention": FLASH.FLASH_ATTENTION}
 
 
 @pytest.fixture
@@ -83,9 +90,10 @@ def test_engine_kernels_match_plain_on_card(cuda_device):
     pols = (BL.BASELINE, BL.PCAL, BL.WBYP, BL.MEDIC)
     kw = dict(n_warps=48, lanes=16, prm=SimParams(), engine="wavefront",
               device=cuda_device)
-    before = {k: v.launches for k, v in KERNELS.items()}
+    before = {k: v.launches for k, v in WAVEFRONT_KERNELS.items()}
     out = simulate_sweep(*args, pols, **kw)
-    assert all(v.launches > before[k] for k, v in KERNELS.items())
+    assert all(v.launches > before[k]
+               for k, v in WAVEFRONT_KERNELS.items())
     ref = simulate_sweep(*args, pols, scan_backend="ref",
                          cache_backend="ref", **kw)
     for k in out:
@@ -93,3 +101,59 @@ def test_engine_kernels_match_plain_on_card(cuda_device):
             torch.testing.assert_close(out[k], ref[k], rtol=1e-6, atol=0)
         else:
             assert torch.equal(out[k], ref[k]), k
+
+
+def test_chip_smoke_builds_and_reports_every_kernel():
+    assert set(CS.SOURCES.values()) == set(KERNELS)
+    assert set(CS.SOURCES) == set(CS.KERNELS)
+    for row in CS.KERNELS.values():
+        assert (ROOT / row["source"]).exists()
+        path, line = row["replaces"].split(":")
+        assert "pallas_call" in (ROOT / path).read_text() and int(line) > 0
+
+
+@pytest.mark.cuda
+def test_medic_gather_kernel_bitwise_on_card(cuda_device):
+    assert CS.phase_medic_gather(cuda_device)["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_matches_plain_on_card(cuda_device):
+    out = CS.phase_decode_attention(cuda_device)
+    assert out["max_abs_err"] <= CS.TOL[torch.bfloat16]
+    assert out["max_abs_err_f32"] <= CS.TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_matches_plain_on_card(cuda_device):
+    out = CS.phase_flash_attention(cuda_device)
+    assert out["max_abs_err"] <= CS.TOL[torch.bfloat16]
+    assert out["max_abs_err_f32"] <= CS.TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_serving_engine_kernels_match_plain_on_card(cuda_device):
+    """A short MeDiC run of a 2-layer Qwen3-1.7B-width engine through the
+    kernels and through their plain versions: same snapshot, K/V caches
+    within 2e-2 (float32)."""
+    import dataclasses
+    cfg = dataclasses.replace(CS.get_config("qwen3_1_7b"), num_layers=2,
+                              dtype="float32")
+    params = CS.ENG.init_params(cfg, 0, cuda_device)
+    pool = dataclasses.replace(CS.SERVE_POOL, policy="medic")
+    runs = []
+    for backend in ("cuda", "ref"):
+        before = {k: v.launches for k, v in KERNELS.items()}
+        eng = CS.ENG.ServeEngine(cfg, CS.SERVE_ECFG, pool,
+                                 device=cuda_device, backend=backend,
+                                 params=params)
+        snap = eng.run(CS.generate_requests(CS.SERVE_WL, seed=0),
+                       max_steps=60)
+        launched = {k: v.launches - before[k] for k, v in KERNELS.items()}
+        runs.append((snap, eng._kv_leaves(), launched))
+    (sk, kvk, lk), (sr, kvr, lr) = runs
+    assert CS._snaps_equal(sk, sr)
+    assert lk["flash_attention"] > 0 and lk["decode_attention"] > 0
+    assert not any(lr.values())
+    for n in ("k", "v"):
+        torch.testing.assert_close(kvk[n], kvr[n], atol=2e-2, rtol=2e-2)

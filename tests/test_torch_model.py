@@ -1,0 +1,235 @@
+"""The port's dense decoder LM against the JAX reference: configs, the
+layers, and prefill + decode through the model with the reference's
+weights carried across by ``params_from_numpy``. Tolerance: 1e-5 in
+float32, 2e-2 in bfloat16 (both rounding orders differ; bf16 rounds at
+different places in the two frameworks)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as JCFG
+from repro.models import layers as JL
+from repro.models.model import build_model as j_build
+from repro.models.model import count_params_analytic
+
+from repro_torch.configs import base as TCFG
+from repro_torch.models import layers as TL
+from repro_torch.models.model import build_model, params_from_numpy
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _cfgs(**kw):
+    return (JCFG.get_config("qwen3_1_7b").reduced(**kw),
+            TCFG.get_config("qwen3_1_7b").reduced(**kw))
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+def test_qwen3_config_matches_reference_field_for_field():
+    j, t = JCFG.get_config("qwen3_1_7b"), TCFG.get_config("qwen3-1.7b")
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert j.padded_vocab == t.padded_vocab == 152064
+    assert t.num_params == count_params_analytic(j)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(num_layers=2),
+                                dict(num_layers=2, dtype="float32"),
+                                dict(d_model=96, num_heads=6)])
+def test_reduced_config_matches_reference(kw):
+    j, t = _cfgs(**kw)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert t.num_params == count_params_analytic(j)
+
+
+def test_get_config_refuses_unported_and_unknown_archs():
+    with pytest.raises(NotImplementedError, match="A9"):
+        TCFG.get_config("xlstm_125m")
+    with pytest.raises(ValueError, match="unknown arch"):
+        TCFG.get_config("gpt5")
+    assert set(TCFG.ARCH_IDS) == set(JCFG.ARCH_IDS)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def test_rms_norm_rope_and_mlp_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 4, 16)).astype(np.float32)
+    scale = rng.standard_normal(16).astype(np.float32)
+    pos = rng.integers(0, 900, (2, 5)).astype(np.int32)
+    np.testing.assert_allclose(
+        TL.rms_norm(torch.from_numpy(x), torch.from_numpy(scale), 1e-6),
+        np.asarray(JL.rms_norm(jnp.asarray(x), jnp.asarray(scale), 1e-6)),
+        atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(
+        TL.rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6),
+        np.asarray(JL.rope(jnp.asarray(x), jnp.asarray(pos), 1e6)),
+        atol=1e-5, rtol=1e-5)
+    jc, tc = _cfgs(num_layers=1, dtype="float32")
+    p = {k: rng.standard_normal(s).astype(np.float32) / 8 for k, s in
+         (("w_gate", (64, 128)), ("w_up", (64, 128)), ("w_down", (128, 64)))}
+    h = rng.standard_normal((2, 3, 64)).astype(np.float32)
+    np.testing.assert_allclose(
+        TL.mlp_apply(tc, {k: torch.from_numpy(v) for k, v in p.items()},
+                     torch.from_numpy(h)),
+        np.asarray(JL.mlp_apply(jc, {k: jnp.asarray(v) for k, v in p.items()},
+                                jnp.asarray(h))), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_attention_full_matches_reference_on_a_ring(window):
+    rng = np.random.default_rng(1)
+    b, w, h, kv, d = 3, 12, 4, 2, 16
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, w, kv, d)).astype(np.float32)
+    v = rng.standard_normal((b, w, kv, d)).astype(np.float32)
+    kv_pos = np.full((b, w), -1, np.int32)
+    kv_pos[0, :4] = np.arange(4)
+    kv_pos[1] = (np.arange(w) + 12) % w + 12     # wrapped ring
+    q_pos = np.array([[3], [23], [0]], np.int32)  # row 2: nothing valid
+    ours = TL.attention_decode(*(torch.from_numpy(a) for a in
+                                 (q, k, v, q_pos, kv_pos)), window=window)
+    ref = JL.attention_decode(*(jnp.asarray(a) for a in
+                                (q, k, v, q_pos, kv_pos)), window=window)
+    np.testing.assert_allclose(ours, np.asarray(ref), atol=1e-5, rtol=1e-5)
+    assert torch.count_nonzero(ours[2]) == 0
+
+
+@pytest.mark.parametrize("page", [None, 1, 4, 12])
+@pytest.mark.parametrize("filled", [[1, 5, 12], [12, 12, 12], [0, 7, 11]])
+def test_paged_route_equals_attention_decode(page, filled):
+    """The ring [B, W, Kv, D] read as pages through the decode kernel's
+    plain version is attention_decode for full attention, wrapped or not."""
+    rng = np.random.default_rng(sum(filled))
+    b, w, h, kv, d = 3, 12, 4, 2, 16
+    q = torch.from_numpy(rng.standard_normal((b, 1, h, d)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, w, kv, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, w, kv, d)).astype(np.float32))
+    kv_pos = np.full((b, w), -1, np.int32)
+    q_pos = np.zeros((b, 1), np.int32)
+    for i, n in enumerate(filled):
+        length = n + 17 * (n == w)          # a full ring has wrapped
+        for p in range(max(0, length - w), length):
+            kv_pos[i, p % w] = p
+        q_pos[i] = length - 1
+    page_ = w if page is None else page
+    tbl = torch.arange(b * (w // page_), dtype=torch.int32).view(b, -1)
+    lengths = torch.tensor(filled, dtype=torch.int32)
+    paged = TL.attention_decode_paged(q, k, v, tbl, lengths, page=page_)
+    plain = TL.attention_decode(q, k, v, torch.from_numpy(q_pos),
+                                torch.from_numpy(kv_pos))
+    torch.testing.assert_close(paged, plain, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the model, with the reference's weights
+# ---------------------------------------------------------------------------
+
+def _models(dtype, num_layers=2):
+    jc, tc = _cfgs(num_layers=num_layers, dtype=dtype)
+    jm = j_build(jc)
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    tm = build_model(tc, "cpu")
+    tm.load_params(params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu"))
+    return jm, jp, tm
+
+
+def _np(x):
+    return x.float().numpy() if torch.is_tensor(x) else np.asarray(x,
+                                                                   np.float32)
+
+
+def _close(a, b, dtype, what):
+    np.testing.assert_allclose(_np(a), _np(b), atol=TOL[dtype],
+                               rtol=TOL[dtype], err_msg=what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,w,page", [(20, 32, 8), (20, 24, None),
+                                      (7, 8, 4)])
+def test_prefill_and_decode_match_reference(dtype, s, w, page):
+    """Prefill, then three decode steps (five when the ring wraps: prompt +
+    decode > W), comparing logits, the K/V cache, len and kv_pos."""
+    from repro.configs.base import ShapeConfig as JShape
+    from repro_torch.configs.base import ShapeConfig as TShape
+    jm, jp, tm = _models(dtype)
+    toks = np.random.default_rng(s).integers(1, 512, (2, s)).astype(np.int32)
+    jc = jm.init_cache(2, JShape("serve", w, 2, "decode"))
+    tcache = tm.init_cache(2, TShape("serve", w, 2, "decode"))
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
+    tl, tcache = tm.prefill({"tokens": torch.from_numpy(toks)}, tcache)
+    _close(tl, jl, dtype, "prefill logits")
+    steps = 3 if s + 3 <= w else 5
+    for step in range(steps + 1):
+        jkv, tkv = jc["stack"]["scan"]["0_layer"], \
+            tcache["stack"]["scan"]["0_layer"]
+        for n in ("k", "v"):
+            _close(tkv[n], jkv[n], dtype, f"{n} after step {step}")
+        np.testing.assert_array_equal(tcache["len"].numpy(), jc["len"])
+        np.testing.assert_array_equal(tcache["kv_pos"].numpy(),
+                                      jc["kv_pos"])
+        if step == steps:
+            break
+        t = np.full((2, 1), 3 + step, np.int32)
+        jl, jc = jm.decode(jp, jnp.asarray(t), jc)
+        tl, tcache = tm.decode(torch.from_numpy(t), tcache, page=page)
+        _close(tl, jl, dtype, f"decode logits step {step}")
+    assert s + steps <= w or int(tcache["len"][0]) > w
+
+
+def test_init_params_is_seeded_and_complete():
+    _, tc = _cfgs(num_layers=2)
+    a = build_model(tc, "cpu").init_params(torch.Generator().manual_seed(3))
+    b = build_model(tc, "cpu").init_params(torch.Generator().manual_seed(3))
+    c = build_model(tc, "cpu").init_params(torch.Generator().manual_seed(4))
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["embed"], c["embed"])
+    m = build_model(tc, "cpu")
+    m.load_params(a)
+    assert sum(p.numel() for p in m.parameters()) == tc.num_params
+    assert all(p.device.type == "cpu" and not p.requires_grad
+               for p in m.parameters())
+    assert m.embed.dtype == torch.bfloat16
+    assert m.layers[1].attn["q_norm"].dtype == torch.float32
+
+
+def test_params_from_numpy_carries_every_leaf():
+    jm, jp, tm = _models("bfloat16", num_layers=3)
+    state = dict(tm.named_parameters())
+    wq = np.asarray(jp["stack"]["scan"]["0_layer"]["attn"]["wq"], np.float32)
+    for i in range(3):
+        np.testing.assert_array_equal(state[f"layers.{i}.attn.wq"].float(),
+                                      wq[i])
+    np.testing.assert_array_equal(state["embed"].float(),
+                                  np.asarray(jp["embed"], np.float32))
+    n_ref = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(jp))
+    assert sum(p.numel() for p in state.values()) == n_ref
+
+
+def test_model_refuses_what_it_does_not_run():
+    _, tc = _cfgs(num_layers=1)
+    m = build_model(tc, "cpu")
+    m.init_params(torch.Generator().manual_seed(0))
+    from repro_torch.configs.base import ShapeConfig
+    cache = m.init_cache(1, ShapeConfig("s", 12, 1, "decode"))
+    with pytest.raises(ValueError, match="pages"):
+        m.decode(torch.zeros((1, 1), dtype=torch.int32), cache, page=5)
+    swa = dataclasses.replace(tc, sliding_window=8)
+    ms = build_model(swa, "cpu")
+    ms.init_params(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        ms.decode(torch.zeros((1, 1), dtype=torch.int32),
+                  ms.init_cache(1, ShapeConfig("s", 12, 1, "decode")))
+    moe = dataclasses.replace(tc, family="moe")
+    with pytest.raises(NotImplementedError, match="A9"):
+        build_model(moe, "cpu")
+    with pytest.raises(ValueError, match="backend"):
+        build_model(tc, "cpu", backend="pallas")
