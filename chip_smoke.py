@@ -6,7 +6,7 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``); exits non-zero
 without them. Phases, one JSON line each on stdout (with its seconds):
 
   1. device   — the card's name and power limit;
-  2. build    — all five CUDA kernels compiled from ``src/repro_torch/csrc``
+  2. build    — all seven CUDA kernels compiled from ``src/repro_torch/csrc``
      (one ``nvcc`` each, all at once);
   3. wave_queue — the timing-pass kernel against its plain PyTorch
      version on the card, bitwise, on fuzzed waves; ms per call;
@@ -25,7 +25,8 @@ without them. Phases, one JSON line each on stdout (with its seconds):
   7. medic_gather, decode_attention, flash_attention — each serving-path
      kernel against its plain version on the card at the path's shapes
      (the gather bitwise; the attention kernels within the reference's
-     TOL, 4e-2 in bf16 and 3e-5 in float32), with ms per call, the plain
+     TOL, 4e-2 in bf16 and 3e-5 in float32, at D 128 and, for the hybrid,
+     D 256 with G 10 and a window of 2048), with ms per call, the plain
      version's and one PyTorch library call's ms, bytes and flops;
   8. serving  — the serving main path: ``run_ab`` on Qwen3-1.7B at full
      width (28 layers, random weights from a seed) with every count set
@@ -38,9 +39,24 @@ without them. Phases, one JSON line each on stdout (with its seconds):
   9. serving_profile — where the time goes: a full-width decode step
      (host wall, device time per kernel from torch.profiler, kernels per
      step) and a 500-step MeDiC run split by engine method;
- 10. kernels  — one JSON object per kernel: launches on its path, max
+ 10. rg_lru, mlstm — the hybrid and ssm paths' kernels against their
+     plain versions on fuzz grids and at the paths' shapes (rg_lru
+     bitwise; mlstm within 5e-4 / 5e-3, the reference's own, on the
+     outputs and the final state), with ms per call and the plain
+     version's (no single PyTorch call computes either);
+ 11. hybrid_serve, ssm_serve — the hybrid and ssm main paths at full
+     width: ``build_model(cfg).init_params`` (random weights from seed 0)
+     -> ``prefill`` -> 32 greedy ``decode`` steps, RecurrentGemma-2B on 2
+     prompts of 3072 tokens (ring of 2048 = the local window) and
+     xLSTM-125M on 4 prompts of 1024, bf16 through the kernels with every
+     count set to 0 just before and read just after; then both reruns in
+     float32, teacher-forced with the bf16 run's tokens, through the
+     kernels and through their plain versions: logits within the
+     family's SERVE_F32_TOL, greedy tokens equal wherever the top-two gap
+     is wider;
+ 12. kernels  — one JSON object per kernel: launches on its paths, max
      error against the plain version, times, the bound and the library
-     call's time; the Pallas kernels still to port are listed beside.
+     call's time; every Pallas kernel of the reference has its row.
 
 Then the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -48,11 +64,13 @@ Then the ``nvidia-smi`` name/power-limit line, and last
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -71,6 +89,8 @@ from repro_torch.kernels.cache_pass import ops as CPASS  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DEC  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FLASH  # noqa: E402
 from repro_torch.kernels.medic_gather import ops as GATHER  # noqa: E402
+from repro_torch.kernels.mlstm import ops as MLSTM  # noqa: E402
+from repro_torch.kernels.rg_lru import ops as RGLRU  # noqa: E402
 from repro_torch.kernels.wavefront_scan import ops as WSCAN  # noqa: E402
 from repro_torch.kernels.wavefront_scan.ref import QueueCarry  # noqa: E402
 from repro_torch.policy import ops as POL, to_arrays  # noqa: E402
@@ -123,19 +143,21 @@ KERNELS = {
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:88"),
+    "rg_lru": dict(
+        route="cuda", source="src/repro_torch/csrc/rg_lru.cu",
+        replaces="src/repro/kernels/rg_lru/kernel.py:41"),
+    "mlstm": dict(
+        route="cuda", source="src/repro_torch/csrc/mlstm.cu",
+        replaces="src/repro/kernels/mlstm/kernel.py:79"),
 }
 #: the C source of each kernel (its Kernel object's name)
 SOURCES = {"wave_queue": "wave_queue", "wave_cache": "wave_cache",
            "medic_gather": "medic_gather",
            "paged_decode_attention": "decode_attention",
-           "flash_attention": "flash_attention"}
+           "flash_attention": "flash_attention", "rg_lru": "rg_lru",
+           "mlstm": "mlstm"}
 #: Pallas kernels of the reference that the port has not ported yet
-TO_PORT = [
-    dict(name="rg_lru", replaces="src/repro/kernels/rg_lru/kernel.py:41",
-         roadmap="B6"),
-    dict(name="mlstm", replaces="src/repro/kernels/mlstm/kernel.py:79",
-         roadmap="B7"),
-]
+TO_PORT: list = []
 
 DEV = torch.device("cuda")
 
@@ -581,10 +603,69 @@ def phase_decode_attention(dev=DEV) -> dict:
     bytes_moved = (nbytes([q, ident, ln]) + 2 * row * sum(lens)
                    + nbytes([q]))
     ops = 4 * sum(lens) * HKV * G_ * D_
-    return dict(cases=cases, max_abs_err=err["torch.bfloat16"],
-                max_abs_err_f32=err["torch.float32"], ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, lengths=lens,
-                bytes=bytes_moved, ops=ops)
+    hybrid = _decode_attention_hybrid(gen, dev)
+    return dict(cases=cases + hybrid.pop("cases"),
+                max_abs_err=max(err["torch.bfloat16"],
+                                hybrid["max_abs_err"]),
+                max_abs_err_f32=max(err["torch.float32"],
+                                    hybrid.pop("max_abs_err_f32")),
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                lengths=lens, bytes=bytes_moved, ops=ops, hybrid=hybrid)
+
+
+#: the hybrid path's decode: B 2, one KV head, G 10, D 256, a ring of 2048
+HB, HG, HD, HW = 2, 10, 256, 2048
+
+
+def _decode_attention_hybrid(gen, dev) -> dict:
+    """The decode kernel at RecurrentGemma-2B's local attention: the ring
+    as one page (as the model reads it) and as pages of 16 (permuted, with
+    holes), against the plain version; then its ms at a full ring beside
+    the plain version's and masked SDPA's."""
+    e = {"torch.bfloat16": 0.0, "torch.float32": 0.0}
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        q = _randn((HB, 1, HG, HD), dtype, gen, dev)
+        for page in (HW, 16):
+            p = HW // page
+            kp = _randn((HB * p, page, 1, HD), dtype, gen, dev)
+            vp = _randn((HB * p, page, 1, HD), dtype, gen, dev)
+            tbl = torch.randperm(HB * p, generator=gen, device=dev).to(
+                torch.int32).view(HB, p)
+            if page == 16:
+                tbl[0, 3] = -1
+            for lens in ([HW, HW], [1, 1500], [2047, 17]):
+                ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+                out = DEC.paged_decode_attention_cuda(q, kp, vp, tbl, ln)
+                torch.cuda.synchronize()
+                plain = DEC._ref.paged_decode_attention_ref(q, kp, vp, tbl,
+                                                            ln)
+                e[str(dtype)] = max(e[str(dtype)], _close(
+                    out, plain, dtype, f"decode D=256 G=10 {dtype} page "
+                    f"{page} {lens}"))
+                cases += 1
+    q = _randn((HB, 1, HG, HD), torch.bfloat16, gen, dev)
+    kp = _randn((HB, HW, 1, HD), torch.bfloat16, gen, dev)
+    vp = _randn((HB, HW, 1, HD), torch.bfloat16, gen, dev)
+    tbl = torch.arange(HB, dtype=torch.int32, device=dev).view(HB, 1)
+    ln = torch.full((HB,), HW, dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: DEC.paged_decode_attention_cuda(q, kp, vp, tbl, ln),
+                 iters=50)
+    plain_ms = time_ms(lambda: DEC._ref.paged_decode_attention_ref(
+        q, kp, vp, tbl, ln))
+    qs = q.reshape(HB, 1, HG, HD)
+    lib = _sdpa(qs, kp.view(HB, HW, 1, HD), vp.view(HB, HW, 1, HD))
+    _close(lib.reshape(HB, 1, HG, HD),
+           DEC.paged_decode_attention_cuda(q, kp, vp, tbl, ln),
+           torch.bfloat16, "decode D=256 library call")
+    library_ms = time_ms(lambda: _sdpa(qs, kp.view(HB, HW, 1, HD),
+                                       vp.view(HB, HW, 1, HD)), iters=50)
+    return dict(cases=cases, max_abs_err=e["torch.bfloat16"],
+                max_abs_err_f32=e["torch.float32"], ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                shape=[HB, 1, HG, HD, HW],
+                bytes=nbytes([q, kp, vp, tbl, ln, q]),
+                ops=4 * HB * HW * HG * HD)
 
 
 FLASH_CASES = [  # (S, H, Hkv, D, causal, window, dtype)
@@ -597,6 +678,12 @@ FLASH_CASES = [  # (S, H, Hkv, D, causal, window, dtype)
     (37, 4, 1, 64, True, 8, torch.float32),
     (50, 6, 3, 32, False, None, torch.bfloat16),
     (1, 16, 8, 128, True, None, torch.bfloat16),
+    # the hybrid's local attention: MQA, G 10, D 256, window 2048
+    (3072, 10, 1, 256, True, 2048, torch.bfloat16),
+    (300, 10, 1, 256, True, 64, torch.float32),
+    (37, 10, 1, 256, True, 16, torch.bfloat16),
+    (1, 10, 1, 256, True, 2048, torch.float32),
+    (77, 4, 2, 200, False, None, torch.float32),
 ]
 
 
@@ -631,7 +718,31 @@ def phase_flash_attention(dev=DEV) -> dict:
                 max_abs_err_f32=err["torch.float32"], ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, s=s,
                 bytes=nbytes([q, k, v]) + nbytes([q]),
-                ops=ops)
+                ops=ops, hybrid=_flash_attention_hybrid(gen, dev))
+
+
+def _flash_attention_hybrid(gen, dev, s: int = 3072, window: int = 2048
+                            ) -> dict:
+    """The flash kernel at one RecurrentGemma-2B prefill layer (B 2,
+    S 3072, H 10 on one KV head, D 256, window 2048): ms beside the plain
+    version's and SDPA's with the same window as a boolean mask."""
+    q = _randn((HB, s, HG, HD), torch.bfloat16, gen, dev)
+    k = _randn((HB, s, 1, HD), torch.bfloat16, gen, dev)
+    v = _randn((HB, s, 1, HD), torch.bfloat16, gen, dev)
+    run = lambda: FLASH.flash_attention_cuda(q, k, v, window=window)
+    ms = time_ms(run, iters=10)
+    plain_ms = time_ms(lambda: FLASH._ref.flash_attention_ref(
+        q, k, v, window=window), iters=3)
+    pos = torch.arange(s, device=dev)
+    mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < window)
+    lib = _sdpa(q, k, v, attn_mask=mask).transpose(1, 2)
+    _close(lib, run(), torch.bfloat16, "flash D=256 library call")
+    library_ms = time_ms(lambda: _sdpa(q, k, v, attn_mask=mask), iters=10)
+    # live (query, key) pairs under the causal window
+    pairs = sum(min(i + 1, window) for i in range(s))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                shape=[HB, s, HG, 1, HD], window=window,
+                bytes=nbytes([q, k, v, q]), ops=4 * HB * HG * pairs * HD)
 
 
 # ---------------------------------------------------------------------------
@@ -837,6 +948,299 @@ def phase_serving_profile(cfg=None, dev=DEV, engine_steps: int = 500) -> dict:
                 engine=_engine_breakdown(cfg, dev, engine_steps))
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the hybrid and ssm paths' kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: (B, S, W, a_lo, a_hi): odd S and W, one step, a ~ 1, the path's shape
+RG_LRU_CASES = [(1, 1, 1, 0.8, 0.999), (2, 33, 65, 0.8, 0.999),
+                (3, 48, 384, 0.8, 0.999), (2, 64, 256, 0.8, 0.999),
+                (1, 1000, 7, 0.8, 0.999), (2, 40, 24, 0.9999, 1.0),
+                (2, 3072, 2560, 0.9, 0.999)]
+
+
+def phase_rg_lru(dev=DEV) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def case(b, s, w, lo, hi):
+        a = lo + (hi - lo) * torch.rand((b, s, w), generator=gen, device=dev)
+        x = 0.1 * torch.randn((b, s, w), generator=gen, device=dev)
+        h0 = torch.randn((b, w), generator=gen, device=dev)
+        return a, x, h0
+    for b, s, w, lo, hi in RG_LRU_CASES:
+        args = case(b, s, w, lo, hi)
+        out = RGLRU.rg_lru_cuda(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(out, RGLRU._ref.rg_lru_ref(*args)),
+              f"rg_lru B={b} S={s} W={w}: kernel != plain")
+    # timing at the hybrid prefill's call: one rec layer, B 2, S 3072, W 2560
+    args = case(2, 3072, 2560, 0.9, 0.999)
+    ms = time_ms(lambda: RGLRU.rg_lru_cuda(*args), iters=50)
+    plain_ms = time_ms(lambda: RGLRU._ref.rg_lru_ref(*args), iters=2)
+    out = RGLRU.rg_lru_cuda(*args)
+    return dict(cases=len(RG_LRU_CASES), max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, library_ms=None, shape=[2, 3072, 2560],
+                bytes=nbytes(list(args) + [out]), ops=2 * out.numel())
+
+
+#: (B, S, H, Dk, Dv, dtype, state): S = 1, S < chunk, whole and ragged
+#: chunks, Dk at the kernel's limit, a nonzero state, the path's shape
+MLSTM_CASES = [
+    (2, 1, 2, 16, 24, torch.float32, True),
+    (2, 5, 2, 16, 24, torch.float32, True),
+    (1, 64, 4, 16, 32, torch.float32, False),
+    (2, 70, 2, 32, 100, torch.bfloat16, True),
+    (2, 200, 1, 64, 64, torch.float32, True),
+    (1, 130, 2, 256, 96, torch.float32, True),
+    (1, 300, 4, 192, 384, torch.bfloat16, True),
+    (4, 1024, 4, 192, 384, torch.bfloat16, False),
+]
+
+
+def _mlstm_inputs(gen, dev, b, s, h, dk, dv, dtype, with_state):
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    q, k, v = rn(b, s, h, dk).to(dtype), rn(b, s, h, dk).to(dtype), \
+        rn(b, s, h, dv).to(dtype)
+    li = rn(b, s, h)
+    lf = torch.nn.functional.logsigmoid(rn(b, s, h) + 2.0)
+    state = None
+    if with_state:
+        state = (rn(b, h, dk, dv), rn(b, h, dk).abs(), rn(b, h))
+    return (q, k, v, li, lf), state
+
+
+def phase_mlstm(dev=DEV) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(14)
+    err = 0.0
+    for b, s, h, dk, dv, dtype, with_state in MLSTM_CASES:
+        args, state = _mlstm_inputs(gen, dev, b, s, h, dk, dv, dtype,
+                                    with_state)
+        out, st = MLSTM.mlstm_cuda(*args, state)
+        torch.cuda.synchronize()
+        p_out, p_st = MLSTM._ref.mlstm_chunkwise_ref(*args, state)
+        for name, a, ref in zip(("h", "C", "n", "m"), (out,) + st,
+                                (p_out,) + p_st):
+            ok = torch.allclose(a, ref, atol=5e-4, rtol=5e-3)
+            e = float((a - ref).abs().max())
+            check(ok and bool(torch.isfinite(a).all()),
+                  f"mlstm B={b} S={s} H={h} Dk={dk} Dv={dv} {dtype} "
+                  f"state={with_state}: {name} max err {e} beyond 5e-4 / "
+                  f"5e-3")
+            err = max(err, e)
+    # timing at the ssm prefill's call: one mLSTM layer of xLSTM-125M
+    b, s, h, dk, dv = 4, 1024, 4, 192, 384
+    args, _ = _mlstm_inputs(gen, dev, b, s, h, dk, dv, torch.bfloat16, False)
+    ms = time_ms(lambda: MLSTM.mlstm_cuda(*args), iters=20)
+    plain_ms = time_ms(lambda: MLSTM._ref.mlstm_chunkwise_ref(*args),
+                       iters=5)
+    out, st = MLSTM.mlstm_cuda(*args)
+    state_in = MLSTM._ref.empty_state(b, h, dk, dv, dev)
+    # the chunkwise form's products per chunk and (batch, head): q.k and
+    # w.v inside the chunk, q.C and the C update across chunks
+    chunk = MLSTM._ref.CHUNK
+    per_chunk = 2 * chunk * (chunk * dk + chunk * dv + 2 * dk * dv)
+    ops = per_chunk * (s // chunk) * b * h
+    return dict(cases=len(MLSTM_CASES), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=None, shape=[b, s, h, dk, dv],
+                bytes=nbytes(list(args) + list(state_in) + [out] + list(st)),
+                ops=ops)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the hybrid and ssm serve paths at full width
+# ---------------------------------------------------------------------------
+
+RECURRENT_KERNELS = {"rg_lru": RGLRU.RG_LRU, "mlstm": MLSTM.MLSTM,
+                     "flash_attention": FLASH.FLASH_ATTENTION,
+                     "paged_decode_attention": DEC.DECODE_ATTENTION}
+
+#: float32 logits of the kernels' run against the plain versions' run
+#: (atol = rtol), per family. Both runs compute the same float32 function
+#: and differ only in the order of their sums; a wrong kernel moves logits
+#: (|logit| up to ~5 here) by O(1).
+#: - hybrid: the attention kernels and rg_lru stay within ~1e-6 of their
+#:   plain versions, ~2e-5 in the logits after 26 layers; 1e-3.
+#: - ssm: the mLSTM divides by a normalizer that can nearly cancel, and the
+#:   sLSTM's 1024-step recurrence amplifies what differs, so reordering
+#:   alone moves xLSTM's logits by ~1e-3. The phase measures that floor on
+#:   the card with a second plain run whose mLSTM takes chunks of 32 (as
+#:   exact a form as the chunks of 64): ``plain_floor``; 1e-2.
+#: ``tol_share`` is the largest |a - b| / (atol + rtol |b|) seen.
+SERVE_F32_TOL = {"hybrid": 1e-3, "ssm": 1e-2}
+SERVE_STEPS = 32
+
+
+def _generate(model, prompts, seq_len, steps, forced=None):
+    """prefill + ``steps`` greedy decode steps (the tokens of ``forced``
+    instead of the argmax when given). Returns (logits [steps+1] of [B, V]
+    float32, tokens [B, steps], prefill s, decode s)."""
+    from repro_torch.configs.base import ShapeConfig
+    b = prompts.shape[0]
+    cache = model.init_cache(b, ShapeConfig("serve", seq_len, b, "decode"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": prompts}, cache)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs, toks = [logits], []
+    for i in range(steps):
+        tok = (forced[:, i:i + 1] if forced is not None
+               else outs[-1].argmax(-1, keepdim=True).to(torch.int32))
+        toks.append(tok)
+        logits, cache = model.decode(tok, cache)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return outs, torch.cat([prompts[:, :0]] + toks, 1), t1 - t0, t2 - t1
+
+
+def _prefill_by_block(model, prompts, seq_len) -> dict:
+    """Where one more bf16 prefill spends its time: seconds per block
+    class, each layer timed between synchronizes (so the total is a little
+    above the unprofiled prefill's), and the total."""
+    spent, start = {}, {}
+
+    def before(mod, args):
+        torch.cuda.synchronize()
+        start[id(mod)] = time.perf_counter()
+
+    def after(mod, args, out):
+        torch.cuda.synchronize()
+        name = type(mod).__name__
+        spent[name] = spent.get(name, 0.0) + time.perf_counter() - start[
+            id(mod)]
+    hooks = [h for layer in model.layers
+             for h in (layer.register_forward_pre_hook(before),
+                       layer.register_forward_hook(after))]
+    try:
+        _, _, total, _ = _generate(model, prompts, seq_len, 0)
+    finally:
+        for h in hooks:
+            h.remove()
+    return dict(total_s=total, seconds=spent)
+
+
+def _compare(cfg, ko, po, tol) -> dict:
+    """Logits of two float32 runs, step by step: within ``tol`` (atol =
+    rtol), and the same greedy token wherever the top-two gap exceeds
+    ``tol``."""
+    err, share, scale, decided, agree = 0.0, 0.0, 0.0, 0, 0
+    for i, (a, b) in enumerate(zip(ko, po)):
+        check(torch.allclose(a, b, atol=tol, rtol=tol),
+              f"{cfg.name} float32 step {i}: kernels vs plain max err "
+              f"{float((a - b).abs().max())} beyond {tol}")
+        err = max(err, float((a - b).abs().max()))
+        share = max(share, float(((a - b).abs() / (tol + tol * b.abs())
+                                  ).max()))
+        scale = max(scale, float(b.abs().max()))
+        top2 = b.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        same = a.argmax(-1) == b.argmax(-1)
+        check(bool(same[clear].all()), f"{cfg.name} float32 step {i}: "
+              "greedy tokens differ where the top-two gap is clear")
+        decided += int(clear.sum())
+        agree += int((same & clear).sum())
+    return dict(max_abs_err_logits=err, tol=tol, tol_share=share,
+                max_abs_logit=scale, greedy_decided=decided,
+                greedy_agree=agree)
+
+
+def _serve(cfg, dev, batch: int, prompt: int, seq_len: int, tol: float,
+           steps: int = SERVE_STEPS, floor_chunk=None) -> dict:
+    """One family's main path at ``cfg``'s width: the counted bf16 run
+    through the kernels, then the float32 reruns (kernels, plain
+    versions), teacher-forced with its tokens; with ``floor_chunk``, one
+    more plain run whose mLSTM takes chunks of that length."""
+    from repro_torch.models.model import build_model
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=gen, device=dev, dtype=torch.int32)
+    model = build_model(cfg, dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in RECURRENT_KERNELS.values():
+        k.launches = 0
+    outs, toks, pre_s, dec_s = _generate(model, prompts, seq_len, steps)
+    launches = {n: k.launches for n, k in RECURRENT_KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(bool(torch.isfinite(o).all()) for o in outs),
+          f"{cfg.name}: non-finite logits")
+    check(tuple(outs[0].shape) == (batch, cfg.padded_vocab),
+          f"{cfg.name}: logits {tuple(outs[0].shape)}")
+    n_params = sum(p.numel() for p in model.parameters())
+    by_block = _prefill_by_block(model, prompts, seq_len)
+    del model, outs
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    kern = build_model(cfg32, dev, backend="cuda")
+    state = kern.init_params(torch.Generator(device=dev).manual_seed(0))
+    plain = build_model(cfg32, dev, backend="ref")
+    plain.load_params(state)
+    t0 = time.perf_counter()
+    ko, _, _, _ = _generate(kern, prompts, seq_len, steps, forced=toks)
+    po, _, _, _ = _generate(plain, prompts, seq_len, steps, forced=toks)
+    rerun = _compare(cfg, ko, po, tol)
+    rerun["seconds"] = time.perf_counter() - t0
+    if floor_chunk is not None:
+        chunked = functools.partial(MLSTM._ref.mlstm_chunkwise_ref,
+                                    chunk=floor_chunk)
+        with mock.patch.object(MLSTM._ref, "mlstm_chunkwise_ref", chunked):
+            fo, _, _, _ = _generate(plain, prompts, seq_len, steps,
+                                    forced=toks)
+        rerun["plain_floor"] = dict(
+            chunk=floor_chunk, max_abs_err_logits=max(
+                float((a - b).abs().max()) for a, b in zip(fo, po)))
+        del fo
+    del kern, plain, state, ko, po
+    torch.cuda.empty_cache()
+    tokens = batch * steps
+    return dict(params=n_params, batch=batch, prompt=prompt,
+                seq_len=seq_len, steps=steps, prefill_ms=pre_s * 1e3,
+                prefill_tokens_per_s=batch * prompt / pre_s,
+                decode_ms_per_step=dec_s * 1e3 / steps,
+                decode_tokens_per_s=tokens / dec_s, peak_gb=peak / 1e9,
+                launches=launches, prefill_by_block=by_block,
+                f32_rerun=rerun)
+
+
+def phase_hybrid_serve(cfg=None, dev=DEV, steps: int = SERVE_STEPS) -> dict:
+    """RecurrentGemma-2B: 2 prompts of 3072 tokens, a ring of 2048 (the
+    local window) that prefill writes past its wrap, 32 decode steps."""
+    cfg = cfg or get_config("recurrentgemma_2b")
+    out = _serve(cfg, dev, batch=2, prompt=3072, seq_len=4096,
+                 tol=SERVE_F32_TOL["hybrid"], steps=steps)
+    kinds = _layer_kinds(cfg)
+    n_rec, n_attn = kinds.count("rec"), kinds.count("attn")
+    want = {"rg_lru": n_rec, "flash_attention": n_attn,
+            "paged_decode_attention": n_attn * steps, "mlstm": 0}
+    check(out["launches"] == want and n_rec > 0 and n_attn > 0,
+          f"hybrid launches {out['launches']} != {want}")
+    return out
+
+
+def phase_ssm_serve(cfg=None, dev=DEV, steps: int = SERVE_STEPS) -> dict:
+    """xLSTM-125M: 4 prompts of 1024 tokens, 32 decode steps."""
+    cfg = cfg or get_config("xlstm_125m")
+    out = _serve(cfg, dev, batch=4, prompt=1024, seq_len=1024 + steps,
+                 tol=SERVE_F32_TOL["ssm"], steps=steps, floor_chunk=32)
+    n_mlstm = _layer_kinds(cfg).count("mlstm")
+    want = {"rg_lru": 0, "flash_attention": 0, "paged_decode_attention": 0,
+            "mlstm": n_mlstm}
+    check(out["launches"] == want and n_mlstm > 0,
+          f"ssm launches {out['launches']} != {want}")
+    return out
+
+
+def _layer_kinds(cfg) -> list:
+    """Block kind of each of ``cfg``'s layers, in execution order."""
+    from repro_torch.models.model import _stackdef
+    from repro_torch.models.stack import layer_kinds
+    return layer_kinds(_stackdef(cfg))
+
+
 def bound(meas: dict, ops_per_s: float) -> dict:
     """The least time for the work: bytes over HBM bandwidth or operations
     over the peak rate of their type, whichever is larger."""
@@ -856,6 +1260,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
+    # float32 products in full float32 (the plain versions and the reruns)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     emit("device", nvidia_smi=smi, torch_name=name,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
@@ -875,30 +1282,49 @@ def main() -> int:
                       ("decode_attention", phase_decode_attention),
                       ("flash_attention", phase_flash_attention),
                       ("serving", phase_serving),
-                      ("serving_profile", phase_serving_profile)):
+                      ("serving_profile", phase_serving_profile),
+                      ("rg_lru", phase_rg_lru), ("mlstm", phase_mlstm),
+                      ("hybrid_serve", phase_hybrid_serve),
+                      ("ssm_serve", phase_ssm_serve)):
         t0 = time.perf_counter()
         results[phase] = fn()
         emit(phase, seconds=time.perf_counter() - t0, **results[phase])
 
-    # launches of each kernel on its main path: the wavefront kernels in
-    # HAMMER2K x 4 policies, the serving kernels in the full-width A/B
-    paths = {**results["scale"]["HAMMER2K"]["launches"],
-             **results["serving"]["launches"]}
+    # launches of each kernel on its main paths: the wavefront kernels in
+    # HAMMER2K x 4 policies, the serving kernels in the full-width A/B, the
+    # attention kernels also in the hybrid run, rg_lru in the hybrid run,
+    # mlstm in the ssm run (each run counted from 0)
+    paths = {"HAMMER2K": results["scale"]["HAMMER2K"]["launches"],
+             "serving": results["serving"]["launches"],
+             "hybrid_serve": results["hybrid_serve"]["launches"],
+             "ssm_serve": results["ssm_serve"]["launches"]}
     measured = {"wave_queue": (results["wave_queue"], F32_OPS_PER_S),
                 "wave_cache": (results["wave_cache"], F32_OPS_PER_S),
                 "medic_gather": (results["medic_gather"], BF16_OPS_PER_S),
                 "paged_decode_attention": (results["decode_attention"],
                                            BF16_OPS_PER_S),
                 "flash_attention": (results["flash_attention"],
-                                    BF16_OPS_PER_S)}
+                                    BF16_OPS_PER_S),
+                "rg_lru": (results["rg_lru"], F32_OPS_PER_S),
+                "mlstm": (results["mlstm"], F32_OPS_PER_S)}
     rows = []
     for kname, (meas, peak) in measured.items():
-        check(paths[kname] > 0, f"{kname} never launched on its main path")
-        rows.append(dict(
-            name=kname, **KERNELS[kname], launches=paths[kname],
+        by_path = {p: c[kname] for p, c in paths.items() if c.get(kname)}
+        launches = sum(by_path.values())
+        check(launches > 0, f"{kname} never launched on its main path")
+        row = dict(
+            name=kname, **KERNELS[kname], launches=launches,
             max_abs_err=meas["max_abs_err"], ms=meas["ms"],
             plain_ms=meas["plain_ms"], **bound(meas, peak),
-            library_ms=meas.get("library_ms")))
+            library_ms=meas.get("library_ms"), launches_by_path=by_path)
+        if "hybrid" in meas:   # the attention kernels at the hybrid's shape
+            h = meas["hybrid"]
+            row["hybrid"] = dict(ms=h["ms"], plain_ms=h["plain_ms"],
+                                 library_ms=h["library_ms"],
+                                 **bound(h, BF16_OPS_PER_S))
+        rows.append(row)
+    check(set(KERNELS) == {r["name"] for r in rows} and not TO_PORT,
+          "a Pallas kernel of the reference has no row")
     print(json.dumps({"kernels": rows, "to_port": TO_PORT}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

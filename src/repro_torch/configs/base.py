@@ -3,8 +3,8 @@
 ``ModelConfig`` keeps every field of the reference, so a config built
 here describes the same architecture as the reference's, field for field,
 and ``reduced`` cuts it to the same small size. ``get_config`` returns the
-configs the port can build; the others raise until their family is ported
-(ROADMAP A9). ``OptimizerConfig``, ``TrainConfig``, ``MeshConfig`` and
+configs the port can build (the dense, hybrid and ssm families); the
+others raise until their family is ported (ROADMAP A9). ``OptimizerConfig``, ``TrainConfig``, ``MeshConfig`` and
 ``MedicConfig`` are not ported yet.
 """
 from __future__ import annotations
@@ -31,7 +31,7 @@ class ModelConfig:
       encdec  -- Whisper-style encoder-decoder (audio frontend stubbed)
       vlm     -- Llama-3.2-Vision-style: self-attn stack + interleaved
                  cross-attention to (stubbed) image patch embeddings
-    Only ``dense`` is ported so far.
+    ``dense``, ``hybrid`` and ``ssm`` are ported so far.
     """
 
     name: str
@@ -93,7 +93,7 @@ class ModelConfig:
 
     @property
     def num_params(self) -> int:
-        """Parameter count of the port's model (dense family)."""
+        """Parameter count of the port's model."""
         from repro_torch.models.model import count_params
         return count_params(self)
 
@@ -144,8 +144,8 @@ ARCH_IDS = (
     "xlstm_125m",
 )
 
-#: the archs whose config module the port has (dense family, ROADMAP A9)
-PORTED_ARCHS = ("qwen3_1_7b",)
+#: the archs whose config module the port has (ROADMAP A9)
+PORTED_ARCHS = ("qwen3_1_7b", "recurrentgemma_2b", "xlstm_125m")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -22,6 +22,13 @@
 // serving path's shape (B 4, Hkv 8, G 2, D 128, 448 positions) that is
 // 7.3 MB per layer, 2.2 us at 3.35 TB/s.
 //
+// Head dims up to 256 and groups up to 16 (RecurrentGemma's local attention
+// is D = 256, G = 10). The kernel is instantiated twice, for D <= 128 and
+// for D <= 256: each thread keeps GMAX * DMAX / 128 accumulators, and the
+// D <= 128 instance is the code it always was, so its results are
+// unchanged. At G 10, D 256 a block needs ~77 KB of shared memory, above
+// the 48 KB default, and opts in to more.
+//
 // Design. One block per (KV head, sequence), four warps. The block walks
 // the table in order, skips holes and stops at the first page past the
 // length (such pages leave m, l and acc exactly unchanged, as the
@@ -44,8 +51,7 @@ constexpr int NT = 128;      // threads per block (4 warps)
 constexpr int NW = NT / 32;  // warps per block
 constexpr int TC = 32;       // positions per staged chunk (one per lane)
 constexpr int GMAX = 16;     // most query heads per KV head
-constexpr int DMAX = 128;    // largest head dim
-constexpr int EMAX = GMAX * DMAX / NT;  // acc elements per thread
+constexpr int DMAX_ALL = 256;  // largest head dim
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -64,13 +70,14 @@ struct Shape {
   float scale;
 };
 
-template <typename T>
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(Shape sh, const T* __restrict__ q,
                                                           const T* __restrict__ k_pool,
                                                           const T* __restrict__ v_pool,
                                                           const int* __restrict__ tbl,
                                                           const int* __restrict__ lengths,
                                                           T* __restrict__ o) {
+  constexpr int EMAX = GMAX * DMAX / NT;  // acc elements per thread
   const int h = blockIdx.x, b = blockIdx.y;
   const int G = sh.g, D = sh.d;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -171,15 +178,28 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(Shape sh, const T* __r
   }
 }
 
-template <typename T>
-cudaError_t launch(const Shape& sh, const void* q, const void* k, const void* v, const void* tbl,
-                   const void* lengths, void* o, cudaStream_t stream) {
+template <typename T, int DMAX>
+cudaError_t launch_d(const Shape& sh, const void* q, const void* k, const void* v,
+                     const void* tbl, const void* lengths, void* o, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)(sh.g * sh.d + 2 * TC * sh.d + sh.g * TC + 3 * sh.g);
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(paged_decode_kernel<T, DMAX>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
   dim3 grid(sh.hkv, sh.b);
-  paged_decode_kernel<T><<<grid, NT, smem, stream>>>(
+  paged_decode_kernel<T, DMAX><<<grid, NT, smem, stream>>>(
       sh, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(tbl), static_cast<const int*>(lengths), static_cast<T*>(o));
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const Shape& sh, const void* q, const void* k, const void* v, const void* tbl,
+                   const void* lengths, void* o, cudaStream_t stream) {
+  if (sh.d <= 128) return launch_d<T, 128>(sh, q, k, v, tbl, lengths, o, stream);
+  return launch_d<T, DMAX_ALL>(sh, q, k, v, tbl, lengths, o, stream);
 }
 
 }  // namespace
@@ -197,7 +217,7 @@ const char* decode_attention_error_string(int err) {
 int decode_attention_launch(int b, int hkv, int g, int d, int page, int p, int n_pool, int bf16,
                             float scale, const void* q, const void* k_pool, const void* v_pool,
                             const void* tbl, const void* lengths, void* o, void* stream) {
-  if (b < 1 || hkv < 1 || g < 1 || g > GMAX || d < 1 || d > DMAX || page < 1 || p < 1 ||
+  if (b < 1 || hkv < 1 || g < 1 || g > GMAX || d < 1 || d > DMAX_ALL || page < 1 || p < 1 ||
       n_pool < 1 || b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{b, hkv, g, d, page, p, n_pool, scale};

@@ -25,6 +25,13 @@
 // CUDA cores, not the tensor cores, and is compute-bound on them; mma /
 // wgmma tiles are the lever for a later change.
 //
+// Head dims up to 256 (RecurrentGemma's local attention is D = 256 with
+// MQA, G = 10). The kernel is instantiated twice, for D <= 128 and for
+// D <= 256: each thread keeps BQ * DMAX / 128 accumulators, and the D <= 128
+// instance is the code it always was, so its results are unchanged. At
+// D = 256 a block needs ~82 KB of shared memory, above the 48 KB default,
+// and opts in to more.
+//
 // Design. One block (four warps) per (BQ = 16 query rows, query head).
 // It loads its q rows once as float32 in shared memory, then walks the KV
 // tiles of BK = 32 keys that the mask leaves live (causal: up to the tile
@@ -47,8 +54,7 @@ constexpr int BQ = 16;    // query rows per block
 constexpr int BK = 32;    // keys per tile
 constexpr int RT = NT / BQ;   // threads per query row (8)
 constexpr int CPT = BK / RT;  // keys per thread in the logits phase (4)
-constexpr int DMAX = 128;     // largest head dim
-constexpr int EMAX = BQ * DMAX / NT;  // acc elements per thread (16)
+constexpr int DMAX_ALL = 256;  // largest head dim
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -67,7 +73,7 @@ struct Shape {
   float scale;
 };
 
-template <typename T>
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(NT) flash_kernel(Shape sh, const T* __restrict__ q,
                                                    const T* __restrict__ k,
                                                    const T* __restrict__ v, T* __restrict__ o) {
@@ -75,6 +81,7 @@ __global__ void __launch_bounds__(NT) flash_kernel(Shape sh, const T* __restrict
   const int bh = blockIdx.y;
   const int b = bh / sh.h, h = bh - b * sh.h;
   const int kvh = h / (sh.h / sh.hkv);
+  constexpr int EMAX = BQ * DMAX / NT;  // acc elements per thread
   const int D = sh.d, DP = D + 1;
   const int tid = threadIdx.x;
   const int r = tid / RT, cl = tid - r * RT;  // logits phase: row, first key
@@ -195,17 +202,29 @@ __global__ void __launch_bounds__(NT) flash_kernel(Shape sh, const T* __restrict
   }
 }
 
-template <typename T>
-cudaError_t launch(const Shape& sh, const void* q, const void* k, const void* v, void* o,
-                   cudaStream_t stream) {
+template <typename T, int DMAX>
+cudaError_t launch_d(const Shape& sh, const void* q, const void* k, const void* v, void* o,
+                     cudaStream_t stream) {
   const int dp = sh.d + 1;
   const size_t smem =
       sizeof(float) * (size_t)(BQ * dp + BK * dp + BK * sh.d + BQ * BK + 2 * BQ);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
   dim3 grid((sh.s + BQ - 1) / BQ, sh.b * sh.h);
-  flash_kernel<T><<<grid, NT, smem, stream>>>(sh, static_cast<const T*>(q),
-                                              static_cast<const T*>(k),
-                                              static_cast<const T*>(v), static_cast<T*>(o));
+  flash_kernel<T, DMAX><<<grid, NT, smem, stream>>>(sh, static_cast<const T*>(q),
+                                                    static_cast<const T*>(k),
+                                                    static_cast<const T*>(v), static_cast<T*>(o));
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const Shape& sh, const void* q, const void* k, const void* v, void* o,
+                   cudaStream_t stream) {
+  if (sh.d <= 128) return launch_d<T, 128>(sh, q, k, v, o, stream);
+  return launch_d<T, DMAX_ALL>(sh, q, k, v, o, stream);
 }
 
 }  // namespace
@@ -222,7 +241,7 @@ const char* flash_attention_error_string(int err) {
 int flash_attention_launch(int b, int s, int skv, int h, int hkv, int d, int causal, int window,
                            int bf16, float scale, const void* q, const void* k, const void* v,
                            void* o, void* stream) {
-  if (b < 1 || s < 1 || skv < 1 || hkv < 1 || h < hkv || h % hkv != 0 || d < 1 || d > DMAX ||
+  if (b < 1 || s < 1 || skv < 1 || hkv < 1 || h < hkv || h % hkv != 0 || d < 1 || d > DMAX_ALL ||
       (long long)b * h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{b, s, skv, h, hkv, d, causal, window, scale};

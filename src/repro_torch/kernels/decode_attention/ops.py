@@ -25,9 +25,9 @@ from repro_torch.kernels.decode_attention import ref as _ref
 
 BACKENDS = _build.BACKENDS
 
-#: limits of the kernel (csrc/decode_attention.cu: GMAX, DMAX)
+#: limits of the kernel (csrc/decode_attention.cu: GMAX, DMAX_ALL)
 KERNEL_MAX_G = 16
-KERNEL_MAX_D = 128
+KERNEL_MAX_D = 256
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 DECODE_ATTENTION = Kernel("decode_attention",

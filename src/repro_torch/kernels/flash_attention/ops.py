@@ -24,8 +24,8 @@ from repro_torch.kernels.flash_attention import ref as _ref
 
 BACKENDS = _build.BACKENDS
 
-#: largest head dim of the kernel (csrc/flash_attention.cu: DMAX)
-KERNEL_MAX_D = 128
+#: largest head dim of the kernel (csrc/flash_attention.cu: DMAX_ALL)
+KERNEL_MAX_D = 256
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FLASH_ATTENTION = Kernel("flash_attention", [_I] * 9 + [_F] + [_V] * 5)

@@ -1,4 +1,5 @@
-"""Block definitions, in torch (dense subset of ``repro.models.blocks``).
+"""Block definitions, in torch (the dense, hybrid and ssm blocks of
+``repro.models.blocks``).
 
 Block apply signature: (cfg, p, x, aux, cache) -> (x, cache)
 
@@ -13,9 +14,9 @@ Caches are per-layer slices of the stacked cache handed in by the stack
 loop, and are updated IN PLACE (the reference returns new arrays; writing
 into the slice saves a copy of the whole cache per step).
 
-Only the dense layer is ported; the other families' blocks (MoE,
-RG-LRU, mLSTM/sLSTM, encoder-decoder, VLM cross-attention) wait for
-ROADMAP A9 and B6/B7.
+Ported: the dense layer, RecurrentGemma's RG-LRU block and local
+attention, and xLSTM's mLSTM and sLSTM blocks; the other families' blocks
+(MoE, encoder-decoder, VLM cross-attention) wait for ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as REC
+from repro_torch.models import xlstm as XL
 from repro_torch.models.stack import BlockDef
 
 F32 = torch.float32
@@ -61,7 +64,12 @@ def _self_attention(cfg, p, x, aux, cache, *, window=None, use_rope=True,
         return L.attn_out(p, o), cache
 
     # decode: write the new kv at write_slot, attend over the ring through
-    # the paged kernel (full attention: Model.decode refuses windows)
+    # the paged kernel. Exact for full attention (Model.decode refuses
+    # sliding-window configs) and for the hybrid's local attention: its
+    # ring holds W = min(seq_len, local_window) <= window slots, so every
+    # filled slot holds a position q - k < window, and the reference's
+    # windowed mask over the ring reduces to the filled prefix
+    # ``lengths = min(len + 1, W)``, as for full attention.
     slot = aux["write_slot"]                                     # [B]
     _scatter_ring(cache["k"], k, slot[:, None])
     _scatter_ring(cache["v"], v, slot[:, None])
@@ -123,26 +131,150 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class DenseLayer(nn.Module):
-    """One dense decoder layer: pre-norm attention and gated MLP, with the
-    reference's parameter names and shapes (``norm1``, ``attn.{wq,wk,wv,
-    wo,q_norm,k_norm}``, ``norm2``, ``mlp.{w_gate,w_up,w_down}``).
-    Parameters start on the ``meta`` device; ``Model.init_params`` or
-    ``Model.load_params`` gives them storage."""
+class _Block(nn.Module):
+    """A block whose parameters are those of ``init_fn(None, cfg)``, with the
+    reference's names and shapes: tensors become frozen parameters and
+    sub-dicts ``nn.ParameterDict``s. Parameters start on the ``meta``
+    device; ``Model.init_params`` or ``Model.load_params`` gives them
+    storage."""
+
+    init_fn = None    # (generator or None, cfg) -> parameter dict
+    apply_fn = None   # (cfg, p, x, aux, cache) -> (x, cache)
 
     def __init__(self, cfg):
         super().__init__()
         self.cfg = cfg
-        p = dense_layer_init(None, cfg)
-        self.norm1 = _frozen(p["norm1"])
-        self.attn = nn.ParameterDict({k: _frozen(t)
-                                      for k, t in p["attn"].items()})
-        self.norm2 = _frozen(p["norm2"])
-        self.mlp = nn.ParameterDict({k: _frozen(t)
-                                     for k, t in p["mlp"].items()})
+        for name, t in type(self).init_fn(None, cfg).items():
+            if isinstance(t, dict):
+                t = nn.ParameterDict({k: _frozen(v) for k, v in t.items()})
+            else:
+                t = _frozen(t)
+            setattr(self, name, t)
 
     def forward(self, x, aux, cache):
-        return dense_layer_apply(self.cfg, self, x, aux, cache)
+        return type(self).apply_fn(self.cfg, self, x, aux, cache)
 
 
-BLOCKS = {"layer": BlockDef("layer", DenseLayer, dense_layer_cache)}
+class DenseLayer(_Block):
+    """One dense decoder layer: pre-norm attention and gated MLP
+    (``norm1``, ``attn.{wq,wk,wv,wo,q_norm,k_norm}``, ``norm2``,
+    ``mlp.{w_gate,w_up,w_down}``)."""
+    init_fn = staticmethod(dense_layer_init)
+    apply_fn = staticmethod(dense_layer_apply)
+
+
+# ---------------------------------------------------------------------------
+# RecurrentGemma blocks
+# ---------------------------------------------------------------------------
+
+def rec_block_init(gen: Optional[torch.Generator], cfg):
+    rp = REC.rglru_params(gen, cfg)
+    mp = L.mlp_params(gen, cfg)
+    return {"norm1": _norm_params(gen, cfg), "rec": rp,
+            "norm2": _norm_params(gen, cfg), "mlp": mp}
+
+
+def rec_block_apply(cfg, p, x, aux, cache):
+    h = L.rms_norm(x, p.norm1, cfg.norm_eps)
+    y, cache = REC.rglru_apply(cfg, p.rec, h, cache,
+                               backend=aux.get("backend", "auto"))
+    x = x + y
+    h = L.rms_norm(x, p.norm2, cfg.norm_eps)
+    x = x + L.mlp_apply(cfg, p.mlp, h)
+    return x, cache
+
+
+def rec_block_cache(cfg, batch, shape_cfg, device):
+    return REC.rglru_cache(cfg, batch, device)
+
+
+def local_attn_apply(cfg, p, x, aux, cache):
+    h = L.rms_norm(x, p.norm1, cfg.norm_eps)
+    a, cache = _self_attention(cfg, p.attn, h, aux, cache,
+                               window=cfg.local_window)
+    x = x + a
+    h = L.rms_norm(x, p.norm2, cfg.norm_eps)
+    x = x + L.mlp_apply(cfg, p.mlp, h)
+    return x, cache
+
+
+def local_attn_cache(cfg, batch, shape_cfg, device):
+    w = min(shape_cfg.seq_len, cfg.local_window)
+    return _kv_cache_init(cfg, batch, w, getattr(torch, cfg.dtype), device)
+
+
+class RecBlock(_Block):
+    """RG-LRU block: ``norm1``, ``rec.{w_x,w_gate,conv_k,conv_b,w_r,b_r,
+    w_i,b_i,lam,w_out}``, ``norm2``, ``mlp``."""
+    init_fn = staticmethod(rec_block_init)
+    apply_fn = staticmethod(rec_block_apply)
+
+
+class LocalAttn(_Block):
+    """The hybrid's local-attention layer: a dense layer whose attention
+    keeps a window of ``cfg.local_window``."""
+    init_fn = staticmethod(dense_layer_init)
+    apply_fn = staticmethod(local_attn_apply)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks
+# ---------------------------------------------------------------------------
+
+def mlstm_block_init(gen: Optional[torch.Generator], cfg):
+    return {"norm": _norm_params(gen, cfg),
+            "mlstm": XL.mlstm_params(gen, cfg)}
+
+
+def mlstm_block_apply(cfg, p, x, aux, cache):
+    h = L.rms_norm(x, p.norm, cfg.norm_eps)
+    y, cache = XL.mlstm_apply(cfg, p.mlstm, h, cache,
+                              backend=aux.get("backend", "auto"))
+    return x + y, cache
+
+
+def mlstm_block_cache(cfg, batch, shape_cfg, device):
+    return XL.mlstm_cache(cfg, batch, device)
+
+
+def slstm_block_init(gen: Optional[torch.Generator], cfg):
+    p = XL.slstm_params(gen, cfg)
+    mp = L.mlp_params(gen, cfg, d_ff=max(cfg.d_ff, 4 * cfg.d_model // 3))
+    return {"norm1": _norm_params(gen, cfg), "slstm": p,
+            "norm2": _norm_params(gen, cfg), "mlp": mp}
+
+
+def slstm_block_apply(cfg, p, x, aux, cache):
+    h = L.rms_norm(x, p.norm1, cfg.norm_eps)
+    y, cache = XL.slstm_apply(cfg, p.slstm, h, cache)
+    x = x + y
+    h = L.rms_norm(x, p.norm2, cfg.norm_eps)
+    x = x + L.mlp_apply(cfg, p.mlp, h)
+    return x, cache
+
+
+def slstm_block_cache(cfg, batch, shape_cfg, device):
+    return XL.slstm_cache(cfg, batch, device)
+
+
+class MLSTMBlock(_Block):
+    """mLSTM block: ``norm``, ``mlstm.{w_up,w_gate,w_q,w_k,w_v,w_if,b_if,
+    w_o,skip}``."""
+    init_fn = staticmethod(mlstm_block_init)
+    apply_fn = staticmethod(mlstm_block_apply)
+
+
+class SLSTMBlock(_Block):
+    """sLSTM block: ``norm1``, ``slstm.{w_gates,b_gates,r_gates,w_out}``,
+    ``norm2``, ``mlp``."""
+    init_fn = staticmethod(slstm_block_init)
+    apply_fn = staticmethod(slstm_block_apply)
+
+
+BLOCKS = {
+    "layer": BlockDef("layer", DenseLayer, dense_layer_cache),
+    "rec": BlockDef("rec", RecBlock, rec_block_cache),
+    "attn": BlockDef("attn", LocalAttn, local_attn_cache),
+    "mlstm": BlockDef("mlstm", MLSTMBlock, mlstm_block_cache),
+    "slstm": BlockDef("slstm", SLSTMBlock, slstm_block_cache),
+}

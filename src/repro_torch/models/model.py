@@ -1,7 +1,9 @@
-"""The model API, in torch (dense family of ``repro.models.model``).
+"""The model API, in torch (the dense, hybrid and ssm families of
+``repro.models.model``).
 
 ``build_model(cfg, device, backend)`` returns a ``Model`` (an
-``nn.Module``) with:
+``nn.Module``) on ``device`` — the card unless the caller asks for
+another (``"cpu"``; without a card the default raises) — with:
   init_params(generator)       -> fills the parameters from a
                                   ``torch.Generator``; returns state_dict
   load_params(state)           -> adopts a state dict (no copy)
@@ -10,13 +12,15 @@
   init_cache(batch, shape_cfg) -> cache dict
 
 The cache dict always contains:
-  "stack":  per-block-kind stacked caches (KV rings), updated in place
+  "stack":  per-block-kind stacked caches (KV rings / recurrent states),
+            updated in place
   "len":    [B] int32 tokens generated so far
   "kv_pos": [B, W] int32 positions held in self-attn cache slots (-1 empty)
 
 ``params_from_numpy`` carries the reference's ``Model.init_params`` pytree
 (as numpy arrays) into the port's state dict, so both packages can run the
-same weights. ``backend`` is the gate of the attention kernels
+same weights. ``backend`` is the gate of the model's kernels — flash and
+paged decode attention, the RG-LRU scan, the chunkwise mLSTM —
 (``"auto"`` | ``"ref"`` | ``"cuda"``).
 """
 from __future__ import annotations
@@ -28,22 +32,32 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.stack import (StackDef, apply_stack, build_layers,
-                                      init_stack_cache)
+                                      init_stack_cache, layer_kinds,
+                                      layer_slots)
 
 F32 = torch.float32
 I32 = torch.int32
 
 
 def _stackdef(cfg: ModelConfig) -> StackDef:
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam == "dense":
         return StackDef(("layer",), cfg.num_layers, B.BLOCKS)
+    if fam in ("hybrid", "ssm"):
+        pattern = cfg.block_pattern or (("rec", "rec", "attn")
+                                        if fam == "hybrid"
+                                        else ("mlstm", "slstm"))
+        n = cfg.num_layers // len(pattern)
+        tail = tuple(pattern[: cfg.num_layers - n * len(pattern)])
+        return StackDef(pattern, n, B.BLOCKS, tail=tail)
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported to repro_torch yet "
-        "(ROADMAP A9; the hybrid and ssm families also need B6/B7)")
+        f"model family {fam!r} is not ported to repro_torch yet "
+        "(ROADMAP A9)")
 
 
 class Model(nn.Module):
@@ -53,7 +67,7 @@ class Model(nn.Module):
             raise ValueError(f"unknown backend {backend!r}; choose from "
                              f"{_build.BACKENDS}")
         self.cfg = cfg
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.backend = backend
         self.stack = _stackdef(cfg)
         dtype = getattr(torch, cfg.dtype)
@@ -72,7 +86,8 @@ class Model(nn.Module):
 
     def init_params(self, gen: torch.Generator) -> Dict[str, torch.Tensor]:
         """Draw every parameter from ``gen`` (on this model's device) in a
-        fixed order: embedding, then each layer, then an untied head."""
+        fixed order: embedding, then each layer in execution order, then
+        an untied head."""
         cfg = self.cfg
         if torch.device(gen.device).type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
@@ -82,9 +97,9 @@ class Model(nn.Module):
                                        dtype),
                  "final_norm": torch.zeros((cfg.d_model,), dtype=F32,
                                            device=gen.device)}
-        for i in range(cfg.num_layers):
-            state.update(_flatten(B.dense_layer_init(gen, cfg),
-                                  f"layers.{i}."))
+        for i, kind in enumerate(layer_kinds(self.stack)):
+            init = self.stack.blocks[kind].module.init_fn
+            state.update(_flatten(init(gen, cfg), f"layers.{i}."))
         if not cfg.tie_embeddings:
             state["lm_head"] = L.dense_init(
                 gen, (cfg.d_model, cfg.padded_vocab), cfg.d_model, dtype)
@@ -165,7 +180,8 @@ class Model(nn.Module):
         Attention reads the ring through the paged decode kernel with
         pages of ``page`` slots (``None``: the whole ring is one page); W
         must be a multiple of ``page``. Sliding-window configs are refused:
-        their ring's masks are not a length prefix.
+        their ring's masks are not a length prefix (the hybrid's local
+        window is: its ring is no longer than the window).
         """
         cfg = self.cfg
         if cfg.sliding_window is not None:
@@ -203,9 +219,14 @@ class Model(nn.Module):
     # -- caches ------------------------------------------------------------
 
     def _window(self, shape_cfg: ShapeConfig) -> int:
+        cfg = self.cfg
         w = shape_cfg.seq_len
-        if self.cfg.sliding_window is not None:
-            w = min(w, self.cfg.sliding_window)
+        if cfg.family == "hybrid":
+            w = min(w, cfg.local_window)
+        elif cfg.sliding_window is not None:
+            w = min(w, cfg.sliding_window)
+        elif cfg.family == "ssm":
+            w = 1  # no attention cache; keep a stub ring of 1
         return w
 
     def init_cache(self, batch: int, shape_cfg: ShapeConfig):
@@ -250,27 +271,30 @@ def _to_torch(a, device) -> torch.Tensor:
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                       device) -> Dict[str, torch.Tensor]:
     """The reference's ``Model.init_params`` pytree (numpy leaves) as the
-    port's state dict: the stacked ``[L, ...]`` leaves of
-    ``stack.scan.0_layer`` are sliced per layer."""
-    _stackdef(cfg)          # raises for families not ported
+    port's state dict, every leaf: layer ``i`` takes slice ``g`` of the
+    stacked ``[n_groups, ...]`` leaves of ``stack.scan.{pos}_{kind}``, or
+    the leaves of ``stack.tail.{j}_{kind}``."""
+    stack = _stackdef(cfg)  # raises for families not ported
     state = {"embed": _to_torch(tree["embed"], device),
              "final_norm": _to_torch(tree["final_norm"], device)}
     if "lm_head" in tree:
         state["lm_head"] = _to_torch(tree["lm_head"], device)
-    stacked = _flatten(tree["stack"]["scan"]["0_layer"])
-    for i in range(cfg.num_layers):
-        for k, a in stacked.items():
-            state[f"layers.{i}.{k}"] = _to_torch(np.asarray(a)[i], device)
+    for i, (sec, key, g) in enumerate(layer_slots(stack)):
+        for k, a in _flatten(tree["stack"][sec][key]).items():
+            a = np.asarray(a)
+            state[f"layers.{i}.{k}"] = _to_torch(a if g is None else a[g],
+                                                 device)
     return state
 
 
 def build_model(cfg: ModelConfig, device=None,
                 backend: str = "auto") -> Model:
     """A ``Model`` for ``cfg`` whose parameters are not drawn yet (call
-    ``init_params`` or ``load_params``)."""
+    ``init_params`` or ``load_params``). ``device=None`` is the card, and
+    raises without one."""
     return Model(cfg, device, backend)
 
 
 def count_params(cfg: ModelConfig) -> int:
     """Parameter count of the port's model (shapes only, no storage)."""
-    return sum(p.numel() for p in Model(cfg).parameters())
+    return sum(p.numel() for p in Model(cfg, "meta").parameters())

@@ -1,18 +1,21 @@
 """The block stack, in torch (port of ``repro.models.stack``).
 
 A model family is a repeated *group pattern* of typed blocks (dense =
-("layer",) × L). The reference stacks each pattern position's parameters
-on a leading ``n_groups`` axis and runs the stack as one ``lax.scan``;
-here the layers are ``nn.Module``s in an ``nn.ModuleList`` and a plain
-Python loop takes the place of the scan. The cache keeps the reference's
-layout — each pattern position's cache leaves stacked on a leading layer
-axis under ``{"scan": {f"{pos}_{kind}": {...}}, "tail": {}}`` — and layer
-``l`` reads and updates (in place) slice ``l`` of every leaf.
+("layer",) × L; RecurrentGemma = ("rec", "rec", "attn") × 8 plus a tail
+("rec", "rec"); xLSTM = ("mlstm", "slstm") × 6). The reference stacks
+each pattern position's parameters on a leading ``n_groups`` axis, runs
+the groups as one ``lax.scan`` and the tail's blocks after it; here the
+layers are ``nn.Module``s in an ``nn.ModuleList`` (groups first, then the
+tail) and a plain Python loop takes the place of the scan. The cache keeps
+the reference's layout — each pattern position's cache leaves stacked on
+a leading layer axis under ``{"scan": {f"{pos}_{kind}": {...}}, "tail":
+{f"{i}_{kind}": {...}}}`` — and layer ``l`` reads and updates (in place)
+its slice of every leaf.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -20,7 +23,9 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class BlockDef:
     kind: str
-    module: Callable      # cfg -> nn.Module with forward(x, aux, cache)
+    module: Callable      # cfg -> nn.Module with forward(x, aux, cache);
+    #                       its init_fn(generator or None, cfg) draws the
+    #                       parameter dict
     init_cache: Optional[Callable] = None  # (cfg, batch, shape_cfg, device) -> cache
 
 
@@ -29,18 +34,38 @@ class StackDef:
     pattern: Tuple[str, ...]   # block kinds within one group
     n_groups: int
     blocks: Dict[str, BlockDef]
+    tail: Tuple[str, ...] = ()  # blocks after the groups (rgemma 26 = 8*3 + 2)
+
+
+def layer_slots(stack: StackDef) -> List[Tuple[str, str, Optional[int]]]:
+    """Per layer, in execution order: ``("scan", f"{pos}_{kind}", group)``
+    for the groups, then ``("tail", f"{i}_{kind}", None)`` for the tail —
+    where the reference keeps that layer's parameters and cache."""
+    slots: List[Tuple[str, str, Optional[int]]] = [
+        ("scan", f"{pos}_{kind}", g)
+        for g in range(stack.n_groups)
+        for pos, kind in enumerate(stack.pattern)]
+    slots += [("tail", f"{i}_{kind}", None)
+              for i, kind in enumerate(stack.tail)]
+    return slots
+
+
+def layer_kinds(stack: StackDef) -> List[str]:
+    """Block kind of each layer, in execution order."""
+    return [key.split("_", 1)[1] for _, key, _ in layer_slots(stack)]
 
 
 def build_layers(cfg, stack: StackDef) -> torch.nn.ModuleList:
-    """The stack's modules in execution order (group-major)."""
-    return torch.nn.ModuleList(
-        stack.blocks[kind].module(cfg)
-        for _ in range(stack.n_groups) for kind in stack.pattern)
+    """The stack's modules in execution order (group-major, then tail)."""
+    return torch.nn.ModuleList(stack.blocks[kind].module(cfg)
+                               for kind in layer_kinds(stack))
 
 
 def init_stack_cache(cfg, stack: StackDef, batch: int, shape_cfg,
                      device) -> Dict[str, Any]:
-    """Zero caches, stacked [n_groups, ...] per pattern position."""
+    """Each block's own initial cache (zeros, or the mLSTM's -1e30
+    stabilizer and the sLSTM's unit normalizer), stacked [n_groups, ...]
+    per pattern position, and one per tail block."""
     cache: Dict[str, Any] = {"scan": {}, "tail": {}}
     for pos, kind in enumerate(stack.pattern):
         bd = stack.blocks[kind]
@@ -48,20 +73,22 @@ def init_stack_cache(cfg, stack: StackDef, batch: int, shape_cfg,
             continue
         c = bd.init_cache(cfg, batch, shape_cfg, device)
         cache["scan"][f"{pos}_{kind}"] = {
-            k: torch.zeros((stack.n_groups,) + tuple(a.shape), dtype=a.dtype,
-                           device=a.device) for k, a in c.items()}
+            k: a[None].repeat((stack.n_groups,) + (1,) * a.dim())
+            for k, a in c.items()}
+    for i, kind in enumerate(stack.tail):
+        bd = stack.blocks[kind]
+        if bd.init_cache is not None:
+            cache["tail"][f"{i}_{kind}"] = bd.init_cache(cfg, batch,
+                                                         shape_cfg, device)
     return cache
 
 
 def apply_stack(cfg, stack: StackDef, layers, x, aux, cache):
     """Run the layers in order. Returns (x, cache); the cache leaves are
     updated in place."""
-    npos = len(stack.pattern)
-    for i, layer in enumerate(layers):
-        g, pos = divmod(i, npos)
-        key = f"{pos}_{stack.pattern[pos]}"
-        c = cache["scan"].get(key)
-        if c is not None:
+    for layer, (sec, key, g) in zip(layers, layer_slots(stack)):
+        c = cache[sec].get(key)
+        if c is not None and g is not None:
             c = {k: a[g] for k, a in c.items()}
         x, _ = layer(x, aux, c)
     return x, cache

@@ -25,13 +25,16 @@ from repro_torch.kernels.cache_pass import ops as CPASS  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DEC  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FLASH  # noqa: E402
 from repro_torch.kernels.medic_gather import ops as GATHER  # noqa: E402
+from repro_torch.kernels.mlstm import ops as MLSTM  # noqa: E402
+from repro_torch.kernels.rg_lru import ops as RGLRU  # noqa: E402
 from repro_torch.kernels.wavefront_scan import ops as WSCAN  # noqa: E402
 
 WAVEFRONT_KERNELS = {"wave_queue": WSCAN.WAVE_QUEUE,
                      "wave_cache": CPASS.WAVE_CACHE}
 KERNELS = {**WAVEFRONT_KERNELS, "medic_gather": GATHER.MEDIC_GATHER,
            "decode_attention": DEC.DECODE_ATTENTION,
-           "flash_attention": FLASH.FLASH_ATTENTION}
+           "flash_attention": FLASH.FLASH_ATTENTION,
+           "rg_lru": RGLRU.RG_LRU, "mlstm": MLSTM.MLSTM}
 
 
 @pytest.fixture
@@ -157,3 +160,62 @@ def test_serving_engine_kernels_match_plain_on_card(cuda_device):
     assert not any(lr.values())
     for n in ("k", "v"):
         torch.testing.assert_close(kvk[n], kvr[n], atol=2e-2, rtol=2e-2)
+
+
+def test_chip_smoke_leaves_no_pallas_kernel_unported():
+    """Every function of the reference that reaches ``pl.pallas_call``
+    has its row; none is still to port."""
+    assert not CS.TO_PORT
+    assert len(CS.KERNELS) == 7
+
+
+@pytest.mark.cuda
+def test_rg_lru_kernel_bitwise_on_card(cuda_device):
+    assert CS.phase_rg_lru(cuda_device)["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+def test_mlstm_kernel_matches_plain_on_card(cuda_device):
+    """Outputs and final state within 5e-4 / 5e-3 (checked inside)."""
+    assert CS.phase_mlstm(cuda_device)["max_abs_err"] < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernels_at_head_dim_256_on_card(cuda_device, dtype):
+    """RecurrentGemma's local attention: MQA with G 10, D 256, windowed
+    prefill and decode over a ring of 2048 (as one page and as pages)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for s, window in ((1, 2048), (37, 16), (300, 64), (700, 256)):
+        q = CS._randn((2, s, 10, 256), dtype, gen, cuda_device)
+        k = CS._randn((2, s, 1, 256), dtype, gen, cuda_device)
+        v = CS._randn((2, s, 1, 256), dtype, gen, cuda_device)
+        out = FLASH.flash_attention_cuda(q, k, v, window=window)
+        plain = FLASH._ref.flash_attention_ref(q, k, v, window=window)
+        CS._close(out, plain, dtype, f"flash D=256 S={s}")
+    hyb = CS._decode_attention_hybrid(gen, cuda_device)
+    assert hyb["max_abs_err"] <= CS.TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "xlstm_125m"])
+def test_recurrent_models_kernels_match_plain_on_card(cuda_device, arch):
+    """Three layers at full width in float32: prefill of 300 tokens (the
+    hybrid's ring of 256 wraps) and 4 decode steps through the kernels and
+    through their plain versions, logits within the family's
+    SERVE_F32_TOL."""
+    import dataclasses
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(CS.get_config(arch), num_layers=3,
+                              dtype="float32")
+    kern = build_model(cfg, cuda_device, backend="cuda")
+    state = kern.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    plain = build_model(cfg, cuda_device, backend="ref")
+    plain.load_params(state)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 300), dtype=torch.int32,
+                            device=cuda_device)
+    ko, toks, _, _ = CS._generate(kern, prompts, 256, 4)
+    po, _, _, _ = CS._generate(plain, prompts, 256, 4, forced=toks)
+    tol = CS.SERVE_F32_TOL[cfg.family]
+    for a, b in zip(ko, po):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)

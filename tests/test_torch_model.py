@@ -50,7 +50,7 @@ def test_reduced_config_matches_reference(kw):
 
 def test_get_config_refuses_unported_and_unknown_archs():
     with pytest.raises(NotImplementedError, match="A9"):
-        TCFG.get_config("xlstm_125m")
+        TCFG.get_config("whisper_tiny")
     with pytest.raises(ValueError, match="unknown arch"):
         TCFG.get_config("gpt5")
     assert set(TCFG.ARCH_IDS) == set(JCFG.ARCH_IDS)
@@ -233,3 +233,15 @@ def test_model_refuses_what_it_does_not_run():
         build_model(moe, "cpu")
     with pytest.raises(ValueError, match="backend"):
         build_model(tc, "cpu", backend="pallas")
+
+
+def test_build_model_defaults_to_the_card(monkeypatch):
+    """``device=None`` is the card: without one it raises instead of
+    falling back to the CPU; ``count_params`` still works on meta
+    tensors."""
+    _, tc = _cfgs(num_layers=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(tc)
+    assert build_model(tc, "cpu").device.type == "cpu"
+    assert tc.num_params > 0
