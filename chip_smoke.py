@@ -26,8 +26,12 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      kernel against its plain version on the card at the path's shapes
      (the gather bitwise; the attention kernels within the reference's
      TOL, 4e-2 in bf16 and 3e-5 in float32, at D 128 and, for the hybrid,
-     D 256 with G 10 and a window of 2048), with ms per call, the plain
-     version's and one PyTorch library call's ms, bytes and flops;
+     D 256 with G 10 and a window of 2048; decode also at lengths on its
+     split edges, flash in bf16 at S off its tile, windows under a key
+     tile and groups of 1 to 16), with ms per call (CUDA events around the
+     wrapper), the kernels' own device time per call (torch.profiler),
+     the decode kernel's split (n_split), the plain version's and one
+     PyTorch library call's ms, bytes and flops;
   8. serving  — the serving main path: ``run_ab`` on Qwen3-1.7B at full
      width (28 layers, random weights from a seed) with every count set
      to 0 just before and read just after; both policies' integers equal
@@ -503,6 +507,21 @@ def _sdpa(q, k, v, **kw):
         enable_gqa=True, **kw)
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """The card's own time per call of ``fn`` in ms: the summed duration
+    of every kernel it launches, from torch.profiler, over ``iters`` calls
+    after three warm-ups (host time between launches excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()) / iters / 1e3
+
+
 def offload_table(slot: int, idx: int, dev) -> torch.Tensor:
     """The engine's offload read: block idx of one slot in every layer."""
     return ((torch.arange(L_, dtype=torch.int32) * B_ + slot) * P_
@@ -559,8 +578,11 @@ def phase_decode_attention(dev=DEV) -> dict:
     holes[torch.rand((B_, P_), generator=gen, device=dev) < 0.25] = -1
     holes[1] = -1                                  # an all-hole row
     tables = {"path": ident, "perm": perm, "holes": holes}
+    plan = DEC.device_plan(dev, B_, HKV, PAGE, P_)
+    sp = plan.split_len           # lengths on the split boundaries, too
     lens_sets = [[0, 1, 15, 16], [17, 447, 448, 100], [w] * B_,
-                 [33, 250, 31, 239]]
+                 [33, 250, 31, 239], [1, sp - 1, sp, sp + 1],
+                 [w, 0, 2 * sp, w - 1]]
     err = {}
     cases = 0
     for dtype in (torch.bfloat16, torch.float32):
@@ -585,8 +607,9 @@ def phase_decode_attention(dev=DEV) -> dict:
     kp = _randn((n, PAGE, HKV, D_), torch.bfloat16, gen, dev)
     vp = _randn((n, PAGE, HKV, D_), torch.bfloat16, gen, dev)
     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
-    ms = time_ms(lambda: DEC.paged_decode_attention_cuda(q, kp, vp, ident,
-                                                         ln), iters=100)
+    run = lambda: DEC.paged_decode_attention_cuda(q, kp, vp, ident, ln)
+    ms = time_ms(run, iters=100)
+    dev_ms = device_ms(run)
     plain_ms = time_ms(lambda: DEC._ref.paged_decode_attention_ref(
         q, kp, vp, ident, ln))
     # the library: masked SDPA over the dense ring [B, W, Hkv, D]
@@ -609,8 +632,10 @@ def phase_decode_attention(dev=DEV) -> dict:
                                 hybrid["max_abs_err"]),
                 max_abs_err_f32=max(err["torch.float32"],
                                     hybrid.pop("max_abs_err_f32")),
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                lengths=lens, bytes=bytes_moved, ops=ops, hybrid=hybrid)
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=library_ms, n_split=plan.n_split,
+                split_len=plan.split_len, lengths=lens, bytes=bytes_moved,
+                ops=ops, hybrid=hybrid)
 
 
 #: the hybrid path's decode: B 2, one KV head, G 10, D 256, a ring of 2048
@@ -632,9 +657,13 @@ def _decode_attention_hybrid(gen, dev) -> dict:
             vp = _randn((HB * p, page, 1, HD), dtype, gen, dev)
             tbl = torch.randperm(HB * p, generator=gen, device=dev).to(
                 torch.int32).view(HB, p)
-            if page == 16:
+            if page == 16:             # holes among many short splits
                 tbl[0, 3] = -1
-            for lens in ([HW, HW], [1, 1500], [2047, 17]):
+                tbl[1, ::7] = -1
+            # 1, split - 1, split, split + 1 (splits of 16), the full ring,
+            # and 0 next to a full row
+            for lens in ([HW, HW], [1, 1500], [2047, 17], [15, 16],
+                         [0, HW]):
                 ln = torch.tensor(lens, dtype=torch.int32, device=dev)
                 out = DEC.paged_decode_attention_cuda(q, kp, vp, tbl, ln)
                 torch.cuda.synchronize()
@@ -649,8 +678,10 @@ def _decode_attention_hybrid(gen, dev) -> dict:
     vp = _randn((HB, HW, 1, HD), torch.bfloat16, gen, dev)
     tbl = torch.arange(HB, dtype=torch.int32, device=dev).view(HB, 1)
     ln = torch.full((HB,), HW, dtype=torch.int32, device=dev)
-    ms = time_ms(lambda: DEC.paged_decode_attention_cuda(q, kp, vp, tbl, ln),
-                 iters=50)
+    run = lambda: DEC.paged_decode_attention_cuda(q, kp, vp, tbl, ln)
+    ms = time_ms(run, iters=50)
+    dev_ms = device_ms(run)
+    plan = DEC.device_plan(dev, HB, 1, HW, 1)
     plain_ms = time_ms(lambda: DEC._ref.paged_decode_attention_ref(
         q, kp, vp, tbl, ln))
     qs = q.reshape(HB, 1, HG, HD)
@@ -661,8 +692,9 @@ def _decode_attention_hybrid(gen, dev) -> dict:
     library_ms = time_ms(lambda: _sdpa(qs, kp.view(HB, HW, 1, HD),
                                        vp.view(HB, HW, 1, HD)), iters=50)
     return dict(cases=cases, max_abs_err=e["torch.bfloat16"],
-                max_abs_err_f32=e["torch.float32"], ms=ms,
+                max_abs_err_f32=e["torch.float32"], ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
+                n_split=plan.n_split, split_len=plan.split_len,
                 shape=[HB, 1, HG, HD, HW],
                 bytes=nbytes([q, kp, vp, tbl, ln, q]),
                 ops=4 * HB * HW * HG * HD)
@@ -684,6 +716,16 @@ FLASH_CASES = [  # (S, H, Hkv, D, causal, window, dtype)
     (37, 10, 1, 256, True, 16, torch.bfloat16),
     (1, 10, 1, 256, True, 2048, torch.float32),
     (77, 4, 2, 200, False, None, torch.float32),
+    # the bf16 tensor-core kernel: S off its tile of 64 rows, windows
+    # shorter than a key tile, groups of 1, 2, 10 and 16 folded into rows
+    (100, 10, 1, 256, True, 16, torch.bfloat16),
+    (333, 10, 1, 256, True, 100, torch.bfloat16),
+    (130, 2, 1, 128, True, None, torch.bfloat16),
+    (77, 16, 1, 64, True, None, torch.bfloat16),
+    (200, 16, 1, 256, True, 40, torch.bfloat16),
+    (70, 1, 1, 32, True, 8, torch.bfloat16),
+    (65, 16, 8, 128, False, None, torch.bfloat16),
+    (77, 4, 2, 200, True, 50, torch.bfloat16),
 ]
 
 
@@ -708,6 +750,7 @@ def phase_flash_attention(dev=DEV) -> dict:
     k = _randn((1, s, HKV, D_), torch.bfloat16, gen, dev)
     v = _randn((1, s, HKV, D_), torch.bfloat16, gen, dev)
     ms = time_ms(lambda: FLASH.flash_attention_cuda(q, k, v), iters=50)
+    dev_ms = device_ms(lambda: FLASH.flash_attention_cuda(q, k, v))
     plain_ms = time_ms(lambda: FLASH._ref.flash_attention_ref(q, k, v))
     lib = _sdpa(q, k, v, is_causal=True).transpose(1, 2)
     _close(lib, FLASH.flash_attention_cuda(q, k, v), torch.bfloat16,
@@ -716,7 +759,8 @@ def phase_flash_attention(dev=DEV) -> dict:
     ops = 4 * (s * (s + 1) // 2) * HKV * G_ * D_
     return dict(cases=len(FLASH_CASES), max_abs_err=err["torch.bfloat16"],
                 max_abs_err_f32=err["torch.float32"], ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, s=s,
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                s=s,
                 bytes=nbytes([q, k, v]) + nbytes([q]),
                 ops=ops, hybrid=_flash_attention_hybrid(gen, dev))
 
@@ -731,6 +775,7 @@ def _flash_attention_hybrid(gen, dev, s: int = 3072, window: int = 2048
     v = _randn((HB, s, 1, HD), torch.bfloat16, gen, dev)
     run = lambda: FLASH.flash_attention_cuda(q, k, v, window=window)
     ms = time_ms(run, iters=10)
+    dev_ms = device_ms(run, iters=5)
     plain_ms = time_ms(lambda: FLASH._ref.flash_attention_ref(
         q, k, v, window=window), iters=3)
     pos = torch.arange(s, device=dev)
@@ -740,8 +785,8 @@ def _flash_attention_hybrid(gen, dev, s: int = 3072, window: int = 2048
     library_ms = time_ms(lambda: _sdpa(q, k, v, attn_mask=mask), iters=10)
     # live (query, key) pairs under the causal window
     pairs = sum(min(i + 1, window) for i in range(s))
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                shape=[HB, s, HG, 1, HD], window=window,
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=library_ms, shape=[HB, s, HG, 1, HD], window=window,
                 bytes=nbytes([q, k, v, q]), ops=4 * HB * HG * pairs * HD)
 
 
@@ -1317,11 +1362,17 @@ def main() -> int:
             max_abs_err=meas["max_abs_err"], ms=meas["ms"],
             plain_ms=meas["plain_ms"], **bound(meas, peak),
             library_ms=meas.get("library_ms"), launches_by_path=by_path)
+        for extra in ("device_ms", "n_split"):
+            if extra in meas:
+                row[extra] = meas[extra]
         if "hybrid" in meas:   # the attention kernels at the hybrid's shape
             h = meas["hybrid"]
-            row["hybrid"] = dict(ms=h["ms"], plain_ms=h["plain_ms"],
+            row["hybrid"] = dict(ms=h["ms"], device_ms=h["device_ms"],
+                                 plain_ms=h["plain_ms"],
                                  library_ms=h["library_ms"],
                                  **bound(h, BF16_OPS_PER_S))
+            if "n_split" in h:
+                row["hybrid"]["n_split"] = h["n_split"]
         rows.append(row)
     check(set(KERNELS) == {r["name"] for r in rows} and not TO_PORT,
           "a Pallas kernel of the reference has no row")

@@ -219,3 +219,57 @@ def test_recurrent_models_kernels_match_plain_on_card(cuda_device, arch):
     tol = CS.SERVE_F32_TOL[cfg.family]
     for a, b in zip(ko, po):
         torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hkv,g,d,page,p", [(4, 8, 2, 128, 16, 28),
+                                              (2, 1, 10, 256, 2048, 1),
+                                              (2, 1, 10, 256, 16, 128),
+                                              (3, 2, 16, 64, 4, 40)])
+def test_decode_attention_split_edges_on_card(cuda_device, dtype, b, hkv, g,
+                                              d, page, p):
+    """The split-KV kernel at lengths on its own splits' edges (1,
+    split - 1, split, split + 1, the full table), 0 beside a full row, and
+    holes among many short splits; rows with nothing live give zeros."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    plan = DEC.device_plan(cuda_device, b, hkv, page, p)
+    cap, sp = page * p, plan.split_len
+    n = b * p
+    q = CS._randn((b, hkv, g, d), dtype, gen, cuda_device)
+    kp = CS._randn((n, page, hkv, d), dtype, gen, cuda_device)
+    vp = CS._randn((n, page, hkv, d), dtype, gen, cuda_device)
+    tbl = torch.randperm(n, generator=gen, device=cuda_device).to(
+        torch.int32).view(b, p)
+    if p > 1:
+        tbl[0, 1::5] = -1
+    edges = [1, sp - 1, sp, sp + 1, 2 * sp, cap - 1, cap, 0]
+    for i in range(0, len(edges), b):
+        lens = (edges[i:i + b] + [cap] * b)[:b]
+        ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+        out = DEC.paged_decode_attention_cuda(q, kp, vp, tbl, ln)
+        plain = DEC._ref.paged_decode_attention_ref(q, kp, vp, tbl, ln)
+        CS._close(out, plain, dtype, f"decode split {plan} {lens}")
+        for row, length in enumerate(lens):
+            if length == 0:
+                assert torch.count_nonzero(out[row]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 10, 16])
+def test_flash_attention_bf16_groups_on_card(cuda_device, g):
+    """The tensor-core kernel with G query heads folded into its rows: S
+    off the tile of 64, windows shorter than a key tile, D 64 to 256."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for s, d, window, causal in ((100, 256, 16, True), (77, 128, None, True),
+                                 (130, 64, 8, True), (333, 256, 100, True),
+                                 (45, 32, None, False)):
+        q = CS._randn((2, s, 2 * g, d), torch.bfloat16, gen, cuda_device)
+        k = CS._randn((2, s, 2, d), torch.bfloat16, gen, cuda_device)
+        v = CS._randn((2, s, 2, d), torch.bfloat16, gen, cuda_device)
+        out = FLASH.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window)
+        plain = FLASH._ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window)
+        CS._close(out, plain, torch.bfloat16,
+                  f"flash G={g} S={s} D={d} window={window}")
