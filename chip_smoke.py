@@ -9,9 +9,13 @@ without them. Phases, one JSON line each on stdout (with its seconds):
   2. build    — all seven CUDA kernels compiled from ``src/repro_torch/csrc``
      (one ``nvcc`` each, all at once);
   3. wave_queue — the timing-pass kernel against its plain PyTorch
-     version on the card, bitwise, on fuzzed waves; ms per call;
+     version on the card, bitwise, on fuzzed waves; ms and device ms per
+     call;
   4. wave_cache — the cache-pass kernel against its plain version,
-     bitwise on state, classifier rows and the nine records; ms per call;
+     bitwise on state, classifier rows and the nine records, in both of
+     its instances (state in shared memory or in global memory) on every
+     case, sparse waves over many sets and the widest waves included; ms
+     and device ms per call of each instance at the path's wave;
   5. golden   — PHASED256 and PHASED_RECOVER256 through
      ``simulate_sweep(engine="wavefront", device="cuda")`` with the
      five-policy labeling ladder: IPC within 1e-6 of the goldens, one
@@ -24,19 +28,22 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      HAMMER4K × MeDiC;
   7. medic_gather, decode_attention, flash_attention — each serving-path
      kernel against its plain version on the card at the path's shapes
-     (the gather bitwise; the attention kernels within the reference's
-     TOL, 4e-2 in bf16 and 3e-5 in float32, at D 128 and, for the hybrid,
-     D 256 with G 10 and a window of 2048; decode also at lengths on its
-     split edges, flash in bf16 at S off its tile, windows under a key
-     tile and groups of 1 to 16), with ms per call (CUDA events around the
+     (the gather bitwise, one pool and several in one launch, both of its
+     routes, holes and all-hole tables; the attention kernels within the
+     reference's TOL, 4e-2 in bf16 and 3e-5 in float32, at D 128 and, for
+     the hybrid, D 256 with G 10 and a window of 2048; decode also at
+     lengths on its split edges, flash in bf16 at S off its tile, windows
+     under a key tile and groups of 1 to 16), with ms per call (CUDA
+     events around the
      wrapper), the kernels' own device time per call (torch.profiler),
-     the decode kernel's split (n_split), the plain version's and one
-     PyTorch library call's ms, bytes and flops;
+     the decode kernel's split (n_split), the plain version's ms, one
+     PyTorch library call's ms and device ms, bytes and flops;
   8. serving  — the serving main path: ``run_ab`` on Qwen3-1.7B at full
      width (28 layers, random weights from a seed) with every count set
      to 0 just before and read just after; both policies' integers equal
      the reference's pinned ones, and each kernel's launches equal what
-     the run did (28 per prefill, 28 per decode step, 2 per offload). Then
+     the run did (28 per prefill, 28 per decode step, 1 per offload, K and
+     V together). Then
      MeDiC for a few steps with the kernels and with their plain versions
      (backend="ref") in float32 at full width: snapshots equal, committed
      K/V caches within 2e-2;
@@ -46,8 +53,8 @@ without them. Phases, one JSON line each on stdout (with its seconds):
  10. rg_lru, mlstm — the hybrid and ssm paths' kernels against their
      plain versions on fuzz grids and at the paths' shapes (rg_lru
      bitwise; mlstm within 5e-4 / 5e-3, the reference's own, on the
-     outputs and the final state), with ms per call and the plain
-     version's (no single PyTorch call computes either);
+     outputs and the final state), with ms and device ms per call and
+     the plain version's ms (no single PyTorch call computes either);
  11. hybrid_serve, ssm_serve — the hybrid and ssm main paths at full
      width: ``build_model(cfg).init_params`` (random weights from seed 0)
      -> ``prefill`` -> 32 greedy ``decode`` steps, RecurrentGemma-2B on 2
@@ -59,8 +66,9 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      family's SERVE_F32_TOL, greedy tokens equal wherever the top-two gap
      is wider;
  12. kernels  — one JSON object per kernel: launches on its paths, max
-     error against the plain version, times, the bound and the library
-     call's time; every Pallas kernel of the reference has its row.
+     error against the plain version, ms and device ms, the bound and the
+     library call's ms and device ms; every Pallas kernel of the
+     reference has its row.
 
 Then the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -191,6 +199,17 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def turns_ms(fns, rounds: int = 7, iters: int = 100) -> list:
+    """``time_ms`` of each of ``fns`` in turns, ``rounds`` times over, so
+    that host-bound calls share the host's moments: per function, its
+    median and the rounds (ms per call)."""
+    got = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(got, fns):
+            t.append(time_ms(fn, iters=iters))
+    return [(float(np.median(t)), t) for t in got]
+
+
 def max_abs_err(a, b) -> float:
     """Largest |a - b| over matching tensors (bool/int as float64);
     identical infinities count as 0."""
@@ -283,16 +302,17 @@ def phase_wave_queue() -> dict:
         err = max(err, e)
     # timing at the main path's wave: HAMMER2K, 512 warps x 16 lanes
     slots, carry = wave_case(np.random.default_rng(1), 8192, False)
-    ms = time_ms(lambda: WSCAN.wave_queue_cuda(*slots, carry, exact=False,
-                                               **QKW))
+    run = lambda: WSCAN.wave_queue_cuda(*slots, carry,  # noqa: E731
+                                        exact=False, **QKW)
+    ms, dev_ms = time_ms(run), device_ms(run)
     plain_ms = time_ms(lambda: WSCAN._ref.wave_queue_recovery_ref(
         *slots, carry, exact=False, **QKW), iters=5)
     out = WSCAN.wave_queue_cuda(*slots, carry, exact=False, **QKW)
     bytes_moved = nbytes(list(slots) + list(carry) + flat(out))
     # ~40 float operations per slot (8 scans + floors and selects)
     ops = 40 * 8192
-    return dict(cases=len(cases), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                n=8192, bytes=bytes_moved, ops=ops)
+    return dict(cases=len(cases), max_abs_err=err, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, n=8192, bytes=bytes_moved, ops=ops)
 
 
 # ---------------------------------------------------------------------------
@@ -340,37 +360,68 @@ CACHE_GRIDS = [(1, 8, 16, 40), (2, 8, 16, 40), (4, 12, 5, 30),
                (8, 160, 16, 60), (512, 200, 16, 4000), (512, 512, 16, 4000),
                (512, 1024, 16, 4000)]
 CACHE_POLICIES = (BL.BASELINE, BL.MEDIC, BL.PCAL, BL.WBYP)
+#: (sets, B, lanes, addr_hi, ways) beyond the grid: sparse waves, few
+#: requests over many sets, where every set the wave does not touch must
+#: still reach the outputs (1024 sets keep the state in shared memory,
+#: 131 KB; 8192 do not fit and take the global-state instance by the
+#: plan); the widest waves, 3 and 8 slots a thread; way counts other than
+#: the paper's 8, in rows of 16-byte words (4, 12) and not (6)
+CACHE_EXTRA = [(1024, 4, 3, 4000, 8), (8192, 8, 2, 4000, 8),
+               (1024, 3000, 4, 4000, 8), (512, 8192, 3, 4000, 8),
+               (16, 40, 8, 60, 6), (8, 64, 8, 60, 12), (32, 100, 6, 80, 4)]
+
+
+def _wave_cache_both(st, args, prm, pa, what) -> float:
+    """The planned instance and the global-state one against the plain
+    version, bitwise; returns the error (0)."""
+    plain = CPASS._ref.wave_cache_pass_ref(st, *args, prm, pa)
+    err = 0.0
+    for resident in (None, False):
+        kern = CPASS.wave_cache_cuda(st, *args, prm, pa, resident=resident)
+        torch.cuda.synchronize()
+        e = max_abs_err(flat(kern), flat(plain))
+        inst = "planned" if resident is None else "global"
+        check(e == 0.0, f"wave_cache {what} ({inst}): kernel != plain "
+                        f"(err {e})")
+        err = max(err, e)
+    return err
 
 
 def phase_wave_cache() -> dict:
     rng = np.random.default_rng(2)
-    runs = [(g, pol, False) for g in CACHE_GRIDS for pol in CACHE_POLICIES]
-    runs.append(((8, 6, 8, 60), BL.MEDIC, True))
+    runs = [(g + (8,), pol, False) for g in CACHE_GRIDS
+            for pol in CACHE_POLICIES]
+    runs.append(((8, 6, 8, 60, 8), BL.MEDIC, True))
+    runs += [(g, BL.MEDIC, False) for g in CACHE_EXTRA]
     err = 0.0
-    for (sets, b, lanes, hi), pol, empty in runs:
-        prm = SimParams(sets=sets)
+    resident = 0
+    for (sets, b, lanes, hi, ways), pol, empty in runs:
+        prm = SimParams(sets=sets, ways=ways)
+        resident += CPASS.plan_wave_cache(prm, b).resident
         st, args, pa = cache_case(rng, 2 * b, b, lanes, prm, pol, hi, empty)
-        kern = CPASS.wave_cache_cuda(st, *args, prm, pa)
-        torch.cuda.synchronize()
-        plain = CPASS._ref.wave_cache_pass_ref(st, *args, prm, pa)
-        e = max_abs_err(flat(kern), flat(plain))
-        check(e == 0.0, f"wave_cache sets={sets} B={b} {pol.name}"
-                        f"{' empty' if empty else ''}: kernel != plain "
-                        f"(err {e})")
-        err = max(err, e)
+        err = max(err, _wave_cache_both(
+            st, args, prm, pa, f"sets={sets} ways={ways} B={b} L={lanes} "
+                               f"{pol.name}{' empty' if empty else ''}"))
     # timing at the main path's wave: HAMMER2K, B = 512, 16 lanes
     prm = SimParams()
+    plan = CPASS.plan_wave_cache(prm, 512)
     st, args, pa = cache_case(np.random.default_rng(3), 2048, 512, 16, prm,
                               BL.MEDIC, addr_hi=1 << 20)
-    ms = time_ms(lambda: CPASS.wave_cache_cuda(st, *args, prm, pa))
+    run = lambda: CPASS.wave_cache_cuda(st, *args, prm, pa)  # noqa: E731
+    glob = lambda: CPASS.wave_cache_cuda(st, *args, prm, pa,  # noqa: E731
+                                         resident=False)
+    ms, dev_ms = time_ms(run), device_ms(run)
     plain_ms = time_ms(lambda: CPASS._ref.wave_cache_pass_ref(
         st, *args, prm, pa), iters=3)
-    out = CPASS.wave_cache_cuda(st, *args, prm, pa)
+    out = run()
     state_in = [getattr(st, f) for f in CPASS._STATE_FIELDS]
     bytes_moved = nbytes(state_in + flat(args) + list(pa) + flat(out))
     # ~60 integer/select operations per request and way-loop
     ops = 60 * 512 * 16
-    return dict(cases=len(runs), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    return dict(cases=2 * len(runs), resident_cases=resident,
+                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                resident=plan.resident, smem_bytes=plan.smem_bytes,
+                global_ms=time_ms(glob), global_device_ms=device_ms(glob),
                 b=512, lanes=16, bytes=bytes_moved, ops=ops)
 
 
@@ -507,19 +558,63 @@ def _sdpa(q, k, v, **kw):
         enable_gqa=True, **kw)
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """The card's own time per call of ``fn`` in ms: the summed duration
-    of every kernel it launches, from torch.profiler, over ``iters`` calls
-    after three warm-ups (host time between launches excluded)."""
+def device_split(fn, iters: int = 20, tries: int = 10) -> dict:
+    """Per call of ``fn`` on the card, from torch.profiler over ``iters``
+    calls after three warm-ups: ``{kernel name: (launches a call, device
+    µs a launch)}``. The profiler can miss launches of a run (in a long
+    process, now and then all of a few runs in a row), so each kernel's
+    time is its mean over the launches seen, and its count a call the
+    nearest whole number; a run that saw none of some kernel's launches is
+    repeated after a pause, and after ``tries`` raises."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    for t in range(tries):
+        for _ in range(3):
             fn()
         torch.cuda.synchronize()
-    return sum(_device_us(e) for e in prof.key_averages()) / iters / 1e3
+        if t:
+            time.sleep(0.2)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: (round(e.count / iters), _device_us(e) / e.count)
+                for e in prof.key_averages() if _device_us(e) > 0}
+        if seen and all(n for n, _ in seen.values()):
+            return seen
+    raise RuntimeError(f"torch.profiler saw no kernel of {iters} calls, "
+                       f"or too few of one, in {tries} runs (last: {seen})")
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """The card's time per call of ``fn`` in ms from CUDA events around
+    ``iters`` calls queued behind a ~30 ms sleep kernel, so that the host
+    has enqueued them all before the first runs: device time with the
+    gaps between launches, host time hidden."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """The card's own time per call of ``fn`` in ms: the summed duration
+    of every kernel it launches (``device_split``), host time between
+    launches excluded. Where torch.profiler stays blind to a call's
+    kernels, ``queued_ms`` (said on stderr)."""
+    try:
+        split = device_split(fn, iters)
+    except RuntimeError as e:
+        print(f"device_ms: {e}; timing by queued_ms", file=sys.stderr,
+              flush=True)
+        return queued_ms(fn, iters)
+    return sum(n * us for n, us in split.values()) / 1e3
 
 
 def offload_table(slot: int, idx: int, dev) -> torch.Tensor:
@@ -532,8 +627,22 @@ def phase_medic_gather(dev=DEV) -> dict:
     gen = torch.Generator(device=dev).manual_seed(10)
     n = L_ * B_ * P_
     cases = 0
+
+    def same(pools, tbl, what):
+        nonlocal cases
+        outs = GATHER.medic_gather_pools_cuda(pools, tbl)
+        one = GATHER.medic_gather_cuda(pools[0], tbl)
+        torch.cuda.synchronize()
+        plain = [GATHER._ref.medic_gather_ref(p, tbl) for p in pools]
+        check(torch.equal(one, plain[0]), f"medic_gather {what}: kernel != "
+              "plain")
+        check(len(outs) == len(pools)
+              and all(torch.equal(o, q) for o, q in zip(outs, plain)),
+              f"medic_gather pools {what}: kernel != plain")
+        cases += 1
     for dtype in (torch.bfloat16, torch.float32):
-        pool = _randn((n, PAGE, HKV, D_), dtype, gen, dev)
+        pools = [_randn((n, PAGE, HKV, D_), dtype, gen, dev)
+                 for _ in range(3)]
         holes = torch.randint(0, n, (B_, P_), generator=gen, device=dev)
         holes[torch.rand((B_, P_), generator=gen, device=dev) < 0.3] = -1
         tables = [offload_table(3, 27, dev), offload_table(0, 0, dev),
@@ -541,30 +650,41 @@ def phase_medic_gather(dev=DEV) -> dict:
                   torch.full((3, 5), -1, dtype=torch.int32, device=dev),
                   torch.tensor([[n - 1]], dtype=torch.int32, device=dev)]
         for tbl in tables:
-            out = GATHER.medic_gather_cuda(pool, tbl)
-            torch.cuda.synchronize()
-            plain = GATHER._ref.medic_gather_ref(pool, tbl)
-            check(torch.equal(out, plain), f"medic_gather {dtype} "
-                  f"{tuple(tbl.shape)}: kernel != plain")
-            cases += 1
-    # pages of 60 bytes take the byte route
-    pool = _randn((9, 3, 1, 5), torch.float32, gen, dev)
+            for k in (1, 2, 3):
+                same(pools[:k], tbl, f"{dtype} {tuple(tbl.shape)} x{k}")
+    # pages of 60 bytes, and a pool off 16 bytes, take the byte route
+    small = [_randn((9, 3, 1, 5), torch.float32, gen, dev) for _ in range(2)]
     tbl = torch.tensor([[8, -1, 0], [4, 4, -1]], dtype=torch.int32,
                        device=dev)
-    check(torch.equal(GATHER.medic_gather_cuda(pool, tbl),
-                      GATHER._ref.medic_gather_ref(pool, tbl)),
-          "medic_gather byte route: kernel != plain")
-    cases += 1
-    # timing at the path's call: one block of one slot in all 28 layers
-    pool = _randn((n, PAGE, HKV, D_), torch.bfloat16, gen, dev)
+    same(small, tbl, "byte route (60-byte pages)")
+    flat_pool = _randn((9 * 16 + 1,), torch.float32, gen, dev)
+    odd = flat_pool[1:].view(9, 4, 2, 2)          # 4 bytes past 16
+    same([odd], tbl, "byte route (unaligned pool)")
+    # timing at the path's call: one block of one slot in all 28 layers;
+    # the engine reads K and V with one launch
+    pk = _randn((n, PAGE, HKV, D_), torch.bfloat16, gen, dev)
+    pv = _randn((n, PAGE, HKV, D_), torch.bfloat16, gen, dev)
     tbl = offload_table(2, 13, dev)
     idx = tbl.view(-1).long()
-    ms = time_ms(lambda: GATHER.medic_gather_cuda(pool, tbl), iters=100)
-    plain_ms = time_ms(lambda: GATHER._ref.medic_gather_ref(pool, tbl))
-    library_ms = time_ms(lambda: torch.index_select(pool, 0, idx), iters=100)
-    page_bytes = PAGE * HKV * D_ * pool.element_size()
-    return dict(cases=cases, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, shape=[n, PAGE, HKV, D_],
+    run = lambda: GATHER.medic_gather_cuda(pk, tbl)  # noqa: E731
+    pair = lambda: GATHER.medic_gather_pools_cuda((pk, pv), tbl)  # noqa
+    lib = lambda: torch.index_select(pk, 0, idx)  # noqa: E731
+    check(torch.equal(lib().view(L_, 1, PAGE, HKV, D_), run()),
+          "medic_gather library call")
+    # host-bound: the kernel, index_select and the pools form in turns
+    (ms, ms_rounds), (library_ms, library_rounds), (pools_ms, _) = \
+        turns_ms((run, lib, pair))
+    dev_ms = device_ms(run, iters=50)
+    plain_ms = time_ms(lambda: GATHER._ref.medic_gather_ref(pk, tbl))
+    library_device_ms = device_ms(lib, iters=50)
+    page_bytes = PAGE * HKV * D_ * pk.element_size()
+    return dict(cases=cases, max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=library_device_ms,
+                ms_rounds=ms_rounds, library_ms_rounds=library_rounds,
+                pools_ms=pools_ms,
+                pools_device_ms=device_ms(pair, iters=50),
+                shape=[n, PAGE, HKV, D_],
                 bytes=2 * L_ * page_bytes + nbytes([tbl]), ops=0)
 
 
@@ -622,6 +742,7 @@ def phase_decode_attention(dev=DEV) -> dict:
            torch.bfloat16, "decode library call")
     library_ms = time_ms(lambda: _sdpa(qs, kd, vd, attn_mask=mask),
                          iters=100)
+    library_device_ms = device_ms(lambda: _sdpa(qs, kd, vd, attn_mask=mask))
     row = HKV * D_ * 2                                  # one bf16 position
     bytes_moved = (nbytes([q, ident, ln]) + 2 * row * sum(lens)
                    + nbytes([q]))
@@ -633,8 +754,9 @@ def phase_decode_attention(dev=DEV) -> dict:
                 max_abs_err_f32=max(err["torch.float32"],
                                     hybrid.pop("max_abs_err_f32")),
                 ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                library_ms=library_ms, n_split=plan.n_split,
-                split_len=plan.split_len, lengths=lens, bytes=bytes_moved,
+                library_ms=library_ms, library_device_ms=library_device_ms,
+                n_split=plan.n_split, split_len=plan.split_len,
+                lengths=lens, bytes=bytes_moved,
                 ops=ops, hybrid=hybrid)
 
 
@@ -689,11 +811,13 @@ def _decode_attention_hybrid(gen, dev) -> dict:
     _close(lib.reshape(HB, 1, HG, HD),
            DEC.paged_decode_attention_cuda(q, kp, vp, tbl, ln),
            torch.bfloat16, "decode D=256 library call")
-    library_ms = time_ms(lambda: _sdpa(qs, kp.view(HB, HW, 1, HD),
-                                       vp.view(HB, HW, 1, HD)), iters=50)
+    lib = lambda: _sdpa(qs, kp.view(HB, HW, 1, HD),  # noqa: E731
+                        vp.view(HB, HW, 1, HD))
+    library_ms, library_device_ms = time_ms(lib, iters=50), device_ms(lib)
     return dict(cases=cases, max_abs_err=e["torch.bfloat16"],
                 max_abs_err_f32=e["torch.float32"], ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=library_device_ms,
                 n_split=plan.n_split, split_len=plan.split_len,
                 shape=[HB, 1, HG, HD, HW],
                 bytes=nbytes([q, kp, vp, tbl, ln, q]),
@@ -756,11 +880,12 @@ def phase_flash_attention(dev=DEV) -> dict:
     _close(lib, FLASH.flash_attention_cuda(q, k, v), torch.bfloat16,
            "flash library call")
     library_ms = time_ms(lambda: _sdpa(q, k, v, is_causal=True), iters=50)
+    library_device_ms = device_ms(lambda: _sdpa(q, k, v, is_causal=True))
     ops = 4 * (s * (s + 1) // 2) * HKV * G_ * D_
     return dict(cases=len(FLASH_CASES), max_abs_err=err["torch.bfloat16"],
                 max_abs_err_f32=err["torch.float32"], ms=ms,
                 device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
-                s=s,
+                library_device_ms=library_device_ms, s=s,
                 bytes=nbytes([q, k, v]) + nbytes([q]),
                 ops=ops, hybrid=_flash_attention_hybrid(gen, dev))
 
@@ -783,10 +908,13 @@ def _flash_attention_hybrid(gen, dev, s: int = 3072, window: int = 2048
     lib = _sdpa(q, k, v, attn_mask=mask).transpose(1, 2)
     _close(lib, run(), torch.bfloat16, "flash D=256 library call")
     library_ms = time_ms(lambda: _sdpa(q, k, v, attn_mask=mask), iters=10)
+    library_device_ms = device_ms(lambda: _sdpa(q, k, v, attn_mask=mask),
+                                  iters=5)
     # live (query, key) pairs under the causal window
     pairs = sum(min(i + 1, window) for i in range(s))
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                library_ms=library_ms, shape=[HB, s, HG, 1, HD], window=window,
+                library_ms=library_ms, library_device_ms=library_device_ms,
+                shape=[HB, s, HG, 1, HD], window=window,
                 bytes=nbytes([q, k, v, q]), ops=4 * HB * HG * pairs * HD)
 
 
@@ -845,7 +973,7 @@ def phase_serving(cfg=None, dev=DEV, rerun_steps: int = 96) -> dict:
           f"flash launches {launches} vs {eng}")
     check(launches["paged_decode_attention"] == layers * eng["decode_steps"]
           > 0, f"decode launches {launches} vs {eng}")
-    check(launches["medic_gather"] == 2 * eng["offloads"] > 0,
+    check(launches["medic_gather"] == eng["offloads"] > 0,
           f"gather launches {launches} vs {eng}")
     tokens = sum(out[p]["tokens_out"] for p in out)
 
@@ -1021,10 +1149,12 @@ def phase_rg_lru(dev=DEV) -> dict:
     # timing at the hybrid prefill's call: one rec layer, B 2, S 3072, W 2560
     args = case(2, 3072, 2560, 0.9, 0.999)
     ms = time_ms(lambda: RGLRU.rg_lru_cuda(*args), iters=50)
+    dev_ms = device_ms(lambda: RGLRU.rg_lru_cuda(*args))
     plain_ms = time_ms(lambda: RGLRU._ref.rg_lru_ref(*args), iters=2)
     out = RGLRU.rg_lru_cuda(*args)
     return dict(cases=len(RG_LRU_CASES), max_abs_err=0.0, ms=ms,
-                plain_ms=plain_ms, library_ms=None, shape=[2, 3072, 2560],
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                shape=[2, 3072, 2560],
                 bytes=nbytes(list(args) + [out]), ops=2 * out.numel())
 
 
@@ -1077,6 +1207,7 @@ def phase_mlstm(dev=DEV) -> dict:
     b, s, h, dk, dv = 4, 1024, 4, 192, 384
     args, _ = _mlstm_inputs(gen, dev, b, s, h, dk, dv, torch.bfloat16, False)
     ms = time_ms(lambda: MLSTM.mlstm_cuda(*args), iters=20)
+    dev_ms = device_ms(lambda: MLSTM.mlstm_cuda(*args), iters=10)
     plain_ms = time_ms(lambda: MLSTM._ref.mlstm_chunkwise_ref(*args),
                        iters=5)
     out, st = MLSTM.mlstm_cuda(*args)
@@ -1087,7 +1218,8 @@ def phase_mlstm(dev=DEV) -> dict:
     per_chunk = 2 * chunk * (chunk * dk + chunk * dv + 2 * dk * dv)
     ops = per_chunk * (s // chunk) * b * h
     return dict(cases=len(MLSTM_CASES), max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=None, shape=[b, s, h, dk, dv],
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                shape=[b, s, h, dk, dv],
                 bytes=nbytes(list(args) + list(state_in) + [out] + list(st)),
                 ops=ops)
 
@@ -1360,9 +1492,13 @@ def main() -> int:
         row = dict(
             name=kname, **KERNELS[kname], launches=launches,
             max_abs_err=meas["max_abs_err"], ms=meas["ms"],
-            plain_ms=meas["plain_ms"], **bound(meas, peak),
-            library_ms=meas.get("library_ms"), launches_by_path=by_path)
-        for extra in ("device_ms", "n_split"):
+            device_ms=meas["device_ms"], plain_ms=meas["plain_ms"],
+            **bound(meas, peak), library_ms=meas.get("library_ms"),
+            library_device_ms=meas.get("library_device_ms"),
+            launches_by_path=by_path)
+        for extra in ("n_split", "pools_ms", "pools_device_ms", "resident",
+                      "global_ms", "global_device_ms", "ms_rounds",
+                      "library_ms_rounds"):
             if extra in meas:
                 row[extra] = meas[extra]
         if "hybrid" in meas:   # the attention kernels at the hybrid's shape
@@ -1370,6 +1506,7 @@ def main() -> int:
             row["hybrid"] = dict(ms=h["ms"], device_ms=h["device_ms"],
                                  plain_ms=h["plain_ms"],
                                  library_ms=h["library_ms"],
+                                 library_device_ms=h["library_device_ms"],
                                  **bound(h, BF16_OPS_PER_S))
             if "n_split" in h:
                 row["hybrid"]["n_split"] = h["n_split"]

@@ -24,25 +24,37 @@
 // dependent lanes, each three block barriers long, with one block per wave.
 //
 // Design. One thread block runs the wave, one thread per slot (SPT slots
-// per thread when B > 1024). Each thread keeps its slots' six classifier
-// rows in registers across all lanes. The cache state lives in the output
-// buffers, which the wrapper clones from the inputs, and is updated in place.
-// Each lane has three phases separated by __syncthreads():
-//   1. read: every decision from lane-start state; the victim is the first
-//      maximal way (as jnp.argmax); the classifier observe; the records;
-//   2. resolve: same-set conflicts between slots of one lane resolve
-//      last-write-wins in slot order, as the reference's scatters do. Each
+// per thread when B > 512). Each thread keeps its slots' six classifier
+// rows in registers across all lanes, and fetches its next lane's address
+// while the current lane runs. The cache state the lanes work on lives in
+// one of two places, chosen by the host from the shapes alone
+// (plan_wave_cache in kernels/cache_pass/ops.py):
+//   * resident: the whole state (tags, rrip, meta, EAF, the three PC
+//     tables) is copied from the input tensors into dynamic shared memory
+//     with cp.async at the start (67 KB at the paper's hierarchy), every
+//     lane reads and writes it there (way rows as int4 where ways % 4 == 0),
+//     and at the end the whole state, touched sets or not, is written to
+//     the output tensors;
+//   * global: where the state does not fit, the kernel first copies the
+//     inputs to the outputs and then updates the outputs in place.
+// The inputs are never written. Each lane has two phases, each ended by
+// __syncthreads():
+//   1. read and claim: every decision from lane-start state; the victim is
+//      the first maximal way (as jnp.argmax); the classifier observe; the
+//      records. Same-set conflicts between slots of one lane resolve
+//      last-write-wins in slot order, as the reference's scatters do: each
 //      writing slot atomicMax-es its slot index into a per-set pointer table
-//      in shared memory: one for the alloc chain (tags, meta), one for the
-//      RRIP chain (every cache-path request rewrites its set's row). Same-lane
-//      allocators of one set share the lane-start row, hence the victim, so a
-//      per-set winner is the per-element winner. PC counters take atomicAdd
-//      (integer, exact in any order); the evictions are counted for the EAF
-//      reset;
-//   3. write: the winners write tags/meta and the RRIP row (recomputed from
-//      the lane-start row, which only the winner touches); EAF stamps carry
-//      the lane-start generation; thread 0 advances the generation.
-// Then the touched pointer entries are cleared.
+//      in shared memory, one for the alloc chain (tags, meta) and one for
+//      the RRIP chain (every cache-path request rewrites its set's row).
+//      Same-lane allocators of one set share the lane-start row, hence the
+//      victim, so a per-set winner is the per-element winner. Lanes claim
+//      in two pairs of tables by turns, so a lane releases the claims of the
+//      one before it without a barrier of its own;
+//   2. write: the PC counters take the lane's adds (shared atomicAdd,
+//      integer, exact in any order); the winners write
+//      tags/meta and the RRIP row (recomputed from the lane-start row, which
+//      only the winner touches); EAF stamps carry the lane-start generation;
+//      thread 0 counts the evictions into the EAF reset.
 //
 // Arithmetic. All integer or select, except the classifier ratio
 // hits / max(sampled, 1) (IEEE division: no fast math) and
@@ -56,12 +68,32 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
+// waves of up to 2048 slots run on at most 512 threads (1, 2 or 4 slots a
+// thread), which leaves a thread 128 registers; wider waves on 1024 (8 a
+// thread, 64 registers)
+constexpr int kMidThreads = 512;
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ unsigned hash_bits(int x, unsigned salt) {
+  unsigned h = static_cast<unsigned>(x) * 2654435761u + salt * 0x9E3779B9u;
+  return h ^ (h >> 15);
+}
 
 __device__ __forceinline__ int hash_index(int x, unsigned salt, unsigned mod) {
-  unsigned h = static_cast<unsigned>(x) * 2654435761u + salt * 0x9E3779B9u;
-  h ^= h >> 15;
-  return static_cast<int>(h % mod);
+  return static_cast<int>(hash_bits(x, salt) % mod);
 }
+
+// h % mod with the modulus fixed for the wave: a mask where it is a power
+// of two (the paper's 512 sets and 4096 EAF bits), else the division
+struct Mod {
+  unsigned mod, mask;
+  __device__ explicit Mod(int m)
+      : mod(static_cast<unsigned>(m)), mask((m & (m - 1)) == 0 ? m - 1 : 0u) {}
+  __device__ __forceinline__ int of(int x, unsigned salt) const {
+    const unsigned h = hash_bits(x, salt);
+    return static_cast<int>(mask ? h & mask : h % mod);
+  }
+};
 
 // torch's (and CPython's) float floor division
 __device__ __forceinline__ float div_floor(float a, float b) {
@@ -74,6 +106,12 @@ __device__ __forceinline__ float div_floor(float a, float b) {
   if (div - fl > 0.5f) fl += 1.f;
   return fl;
 }
+
+// a select weight that contributes: +0 and -0 times {0, 1} add nothing
+__device__ __forceinline__ bool bsel_nz(float w) { return w != 0.f; }
+
+// ints rounded up to whole 16-byte words (shared-memory array starts)
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
 struct Params {
   int B, L, sets, ways, eaf_bits, pc_entries, rrip_max, eaf_capacity;
@@ -90,10 +128,11 @@ struct Inputs {
       *probe_interval;
 };
 
-struct State {  // updated in place
+struct Cache {  // the cache state and the classifier rows, in or out
   int *tags, *rrip, *meta, *eaf, *eaf_gen, *eaf_ctr, *pc_hits, *pc_acc, *pc_req;
-  int *hits, *acc, *wtype, *windows, *sampled;
+  int *hits, *acc, *wtype;
   float* ratio;
+  int *windows, *sampled;
 };
 
 struct Records {  // [L, B] each
@@ -104,19 +143,80 @@ struct Records {  // [L, B] each
   uint8_t* ev_valid;
 };
 
-template <int SPT>
-__global__ void __launch_bounds__(kMaxThreads)
-    wave_cache_kernel(Params p, Inputs in, State st, Records rec) {
-  extern __shared__ int s_ptr[];  // [2 * sets]: alloc chain, then RRIP chain
-  int* p_alloc = s_ptr;
-  int* p_rrip = s_ptr + p.sets;
+__device__ __forceinline__ void cp_async16(int* smem, const int* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(int* smem, const int* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+               "l"(src)
+               : "memory");
+}
+
+// dst[0:n] = src[0:n] by the block, 16 bytes a thread where both are
+// aligned; kToShared copies global -> shared with cp.async (the caller
+// waits), else with loads and stores
+template <bool kToShared>
+__device__ void copy_ints(int* dst, const int* src, int n) {
+  const bool v4 =
+      ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
+  const int n4 = v4 ? n / 4 : 0;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+    if (kToShared)
+      cp_async16(dst + 4 * i, src + 4 * i);
+    else
+      reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
+  }
+  for (int i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x) {
+    if (kToShared)
+      cp_async4(dst + i, src + i);
+    else
+      dst[i] = src[i];
+  }
+}
+
+template <int SPT, bool kResident, int kWays, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+    wave_cache_kernel(Params p, Inputs in, Cache cin, Cache out, Records rec) {
+  // dynamic shared memory: two pairs of per-set pointer tables [sets]
+  // (alloc chain, RRIP chain; even lanes claim in the first pair, odd lanes
+  // in the second), then, resident only, tags, rrip, meta [sets * ways], eaf
+  // [eaf_bits], pc_hits, pc_acc, pc_req [pc_entries], each at a 16-byte start
+  extern __shared__ __align__(16) int smem[];
   __shared__ int s_gen, s_ctr, s_nev;
+  const int ways = kWays ? kWays : p.ways;  // kWays: the way count fixed at compile time
+  const int sets4 = round4(p.sets), sw = p.sets * ways;
+  int *tags, *rrip, *meta, *eaf, *pc_hits, *pc_acc, *pc_req;  // the working state
+  if (kResident) {
+    tags = smem + 4 * sets4;
+    rrip = tags + round4(sw);
+    meta = rrip + round4(sw);
+    eaf = meta + round4(sw);
+    pc_hits = eaf + round4(p.eaf_bits);
+    pc_acc = pc_hits + round4(p.pc_entries);
+    pc_req = pc_acc + round4(p.pc_entries);
+  } else {
+    tags = out.tags, rrip = out.rrip, meta = out.meta, eaf = out.eaf;
+    pc_hits = out.pc_hits, pc_acc = out.pc_acc, pc_req = out.pc_req;
+  }
+  copy_ints<kResident>(tags, cin.tags, sw);
+  copy_ints<kResident>(rrip, cin.rrip, sw);
+  copy_ints<kResident>(meta, cin.meta, sw);
+  copy_ints<kResident>(eaf, cin.eaf, p.eaf_bits);
+  copy_ints<kResident>(pc_hits, cin.pc_hits, p.pc_entries);
+  copy_ints<kResident>(pc_acc, cin.pc_acc, p.pc_entries);
+  copy_ints<kResident>(pc_req, cin.pc_req, p.pc_entries);
+  if (kResident) asm volatile("cp.async.commit_group;\n" ::: "memory");
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < 2 * p.sets; i += blockDim.x) s_ptr[i] = -1;
+  for (int i = tid; i < 4 * sets4; i += blockDim.x) smem[i] = -1;
   if (tid == 0) {
-    s_gen = *st.eaf_gen;
-    s_ctr = *st.eaf_ctr;
+    s_gen = *cin.eaf_gen;
+    s_ctr = *cin.eaf_ctr;
     s_nev = 0;
   }
 
@@ -131,6 +231,15 @@ __global__ void __launch_bounds__(kMaxThreads)
   const bool oracle = in.label_sel[2] > 0.5f;
   const bool sched_medic = *in.sched_medic > 0.5f;
   const float rand_p = *in.rand_p;
+  const Mod set_mod(p.sets), eaf_mod(p.eaf_bits);
+  // a bypass candidate or insertion rank whose select weight is 0 adds
+  // exactly +0 to its sum: its inputs are not computed
+  const bool use_probe = bsel_nz(in.bypass_sel[1]), use_pc = bsel_nz(in.bypass_sel[3]),
+             use_rand = bsel_nz(in.bypass_sel[4]), use_eaf = bsel_nz(in.ins_sel[2]);
+  // way rows as int4: shared-memory arrays start on 16 bytes by layout
+  const bool v4 = (ways & 3) == 0 &&
+                  (kResident || ((reinterpret_cast<uintptr_t>(tags) |
+                                  reinterpret_cast<uintptr_t>(rrip)) & 15) == 0);
   float bsel[5], isel[3];
 #pragma unroll
   for (int k = 0; k < 5; ++k) bsel[k] = in.bypass_sel[k];
@@ -139,6 +248,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   // per-slot registers: classifier rows and per-wave constants
   int c_hits[SPT], c_acc[SPT], c_wt[SPT], c_win[SPT], c_smp[SPT];
+  int c_mod[SPT];  // c_acc % pi, kept as c_acc moves (pi > 0)
   float c_ratio[SPT];
   int pidx[SPT], owt[SPT];
   bool ok[SPT], tok[SPT];
@@ -147,47 +257,64 @@ __global__ void __launch_bounds__(kMaxThreads)
   int addr[SPT], sidx[SPT], victim[SPT], hit_way[SPT], rank[SPT], shift[SPT], wlab[SPT],
       eidx[SPT];
   bool use[SPT], hit[SPT], alloc[SPT], ev[SPT];
+  int a_next[SPT];  // the next lane's addresses, in flight during this lane
 
 #pragma unroll
   for (int k = 0; k < SPT; ++k) {
     const int s = tid + k * blockDim.x;
     const bool in_b = s < p.B;
-    c_hits[k] = in_b ? st.hits[s] : 0;
-    c_acc[k] = in_b ? st.acc[s] : 0;
-    c_wt[k] = in_b ? st.wtype[s] : 0;
-    c_win[k] = in_b ? st.windows[s] : 0;
-    c_smp[k] = in_b ? st.sampled[s] : 0;
-    c_ratio[k] = in_b ? st.ratio[s] : 0.f;
+    c_hits[k] = in_b ? cin.hits[s] : 0;
+    c_acc[k] = in_b ? cin.acc[s] : 0;
+    c_mod[k] = pi > 0 ? c_acc[k] % pi : 0;
+    c_wt[k] = in_b ? cin.wtype[s] : 0;
+    c_win[k] = in_b ? cin.windows[s] : 0;
+    c_smp[k] = in_b ? cin.sampled[s] : 0;
+    c_ratio[k] = in_b ? cin.ratio[s] : 0.f;
     pidx[k] = in_b ? hash_index(in.pc_b[s], 3u, p.pc_entries) : 0;
     owt[k] = in_b ? in.owt_b[s] : 0;
     ok[k] = in_b && in.slot_ok[s];
     tok[k] = in_b && in.tokens_b[s];
     t0[k] = in_b ? in.t0[s] : 0.f;
+    a_next[k] = in_b && p.L > 0 ? in.addr_lb[s] : -1;
+    use[k] = hit[k] = alloc[k] = ev[k] = false;
   }
+  if (kResident) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
   for (int lane = 0; lane < p.L; ++lane) {
+    int* p_alloc = smem + (lane & 1) * 2 * sets4;  // this lane's pointer tables
+    int* p_rrip = p_alloc + sets4;
+    int* q_alloc = smem + ((lane + 1) & 1) * 2 * sets4;  // the previous lane's
     const int gen0 = s_gen;  // lane-start generation
     int n_ev = 0;
-    // ---- 1. read: decisions from lane-start state ------------------------
+    // ---- 1. read: decisions from lane-start state; claims -----------------
 #pragma unroll
     for (int k = 0; k < SPT; ++k) {
       const int s = tid + k * blockDim.x;
-      use[k] = hit[k] = alloc[k] = ev[k] = false;
       if (s >= p.B) continue;
-      const int a = in.addr_lb[lane * p.B + s];
+      // release the previous lane's claims (its writes are done)
+      if (alloc[k]) q_alloc[sidx[k]] = -1;
+      if (use[k]) q_alloc[sets4 + sidx[k]] = -1;
+      const int a = a_next[k];
+      a_next[k] = lane + 1 < p.L ? in.addr_lb[(lane + 1) * p.B + s] : -1;
       const bool valid = a >= 0 && ok[k];
       addr[k] = a;
       // ①② label select + bypass decision
       const int wt = oracle ? owt[k] : c_wt[k];
       wlab[k] = wt;
-      const bool probe = pi != 0 && (c_acc[k] % pi) == pi - 1;
-      const float rand_u = static_cast<float>(hash_index(a, 7u, 65536u)) / 65536.0f;
-      const int ph = st.pc_hits[pidx[k]], pa = st.pc_acc[pidx[k]], pr = st.pc_req[pidx[k]];
-      const float pc_ratio = static_cast<float>(ph) / static_cast<float>(max(pa, 1));
-      const bool pc_probe = (pr % 16) == 15;
-      const bool cand[5] = {false, wt <= 1 && !probe, !tok[k],
-                            pa > 32 && pc_ratio < 0.25f && !pc_probe, rand_u < rand_p};
+      bool cand[5] = {false, false, !tok[k], false, false};
+      if (use_probe) {
+        const bool probe =
+            pi != 0 && (pi > 0 ? c_mod[k] : c_acc[k] % pi) == pi - 1;
+        cand[1] = wt <= 1 && !probe;
+      }
+      if (use_pc) {
+        const int ph = pc_hits[pidx[k]], pa = pc_acc[pidx[k]], pr = pc_req[pidx[k]];
+        const float pc_ratio = static_cast<float>(ph) / static_cast<float>(max(pa, 1));
+        cand[3] = pa > 32 && pc_ratio < 0.25f && (pr % 16) != 15;
+      }
+      if (use_rand)
+        cand[4] = static_cast<float>(hash_index(a, 7u, 65536u)) / 65536.0f < rand_p;
       float sel = 0.f;
 #pragma unroll
       for (int m = 0; m < 5; ++m) sel = sel + bsel[m] * (cand[m] ? 1.f : 0.f);
@@ -195,59 +322,115 @@ __global__ void __launch_bounds__(kMaxThreads)
       use[k] = valid && !byp;
 
       // L2 lookup: first matching way; RRIP hit promotion
-      const int si = hash_index(a, 2u, p.sets);
+      const int si = set_mod.of(a, 2u);
       sidx[k] = si;
-      const int base = si * p.ways;
-      int hw = -1;
-      for (int w = 0; w < p.ways; ++w)
-        if (hw < 0 && st.tags[base + w] == a) hw = w;
-      hit[k] = hw >= 0 && use[k];
+      const int base = si * ways;
+      int hw = -1, mx = -2147483647 - 1, vic = 0;
+      bool h;
+      if constexpr (kWays > 0) {
+        // the row in registers, without branches: the first way holding a,
+        // then the first maximal way of the promoted row
+        int tg[kWays], rr[kWays];
+#pragma unroll
+        for (int w = 0; w < kWays; w += 4) {
+          if (v4) {
+            const int4 t = *reinterpret_cast<const int4*>(tags + base + w);
+            const int4 r = *reinterpret_cast<const int4*>(rrip + base + w);
+            tg[w] = t.x, tg[w + 1] = t.y, tg[w + 2] = t.z, tg[w + 3] = t.w;
+            rr[w] = r.x, rr[w + 1] = r.y, rr[w + 2] = r.z, rr[w + 3] = r.w;
+          } else {
+#pragma unroll
+            for (int u = w; u < w + 4 && u < kWays; ++u) {
+              tg[u] = tags[base + u];
+              rr[u] = rrip[base + u];
+            }
+          }
+        }
+        unsigned long long m = 0;
+#pragma unroll
+        for (int w = 0; w < kWays; ++w) m |= static_cast<unsigned long long>(tg[w] == a) << w;
+        hw = m ? __ffsll(static_cast<long long>(m)) - 1 : -1;
+        h = hw >= 0 && use[k];
+#pragma unroll
+        for (int w = 0; w < kWays; ++w) {
+          rr[w] = (h && w == hw) ? 0 : rr[w];
+          mx = max(mx, rr[w]);
+        }
+        unsigned long long e = 0;
+#pragma unroll
+        for (int w = 0; w < kWays; ++w) e |= static_cast<unsigned long long>(rr[w] == mx) << w;
+        vic = __ffsll(static_cast<long long>(e)) - 1;
+      } else {
+        if (v4) {
+          for (int w = 0; w < ways; w += 4) {
+            const int4 t = *reinterpret_cast<const int4*>(tags + base + w);
+            if (hw < 0)
+              hw = t.x == a ? w : t.y == a ? w + 1 : t.z == a ? w + 2 : t.w == a ? w + 3 : -1;
+          }
+        } else {
+          for (int w = 0; w < ways; ++w)
+            if (hw < 0 && tags[base + w] == a) hw = w;
+        }
+        h = hw >= 0 && use[k];
+        // ③ aging and victim: the first maximal way of the promoted row
+        auto see = [&](int w, int r) {
+          r = (h && w == hw) ? 0 : r;
+          if (r > mx) mx = r, vic = w;
+        };
+        if (v4) {
+          for (int w = 0; w < ways; w += 4) {
+            const int4 r = *reinterpret_cast<const int4*>(rrip + base + w);
+            see(w, r.x);
+            see(w + 1, r.y);
+            see(w + 2, r.z);
+            see(w + 3, r.w);
+          }
+        } else {
+          for (int w = 0; w < ways; ++w) see(w, rrip[base + w]);
+        }
+      }
+      hit[k] = h;
       hit_way[k] = hw;
-      // ③ aging and victim: the first maximal way of the promoted row
-      int mx = -2147483647 - 1;
-      for (int w = 0; w < p.ways; ++w) {
-        const int r = (hit[k] && w == hw) ? 0 : st.rrip[base + w];
-        mx = max(mx, r);
-      }
-      int vic = 0;
-      for (int w = p.ways - 1; w >= 0; --w) {
-        const int r = (hit[k] && w == hw) ? 0 : st.rrip[base + w];
-        if (r == mx) vic = w;
-      }
-      alloc[k] = use[k] && !hit[k];
+      alloc[k] = use[k] && !h;
       shift[k] = alloc[k] ? p.rrip_max - mx : 0;
       victim[k] = vic;
-      const int evicted = st.tags[base + vic];
-      const int vtype = st.meta[base + vic];
+      const int evicted = tags[base + vic];
+      const int vtype = meta[base + vic];
       // insertion rank: one-hot select over (lru, medic, eaf)
-      const bool ebit = st.eaf[hash_index(a, 5u, p.eaf_bits)] == gen0;
+      const bool ebit = use_eaf && eaf[eaf_mod.of(a, 5u)] == gen0;
       const int r_medic = wt >= 3 ? 0 : (wt == 2 ? p.rrip_max - 2 : p.rrip_max - 1);
       const int r_eaf = ebit ? 0 : p.rrip_max - 1;
       const float rsel = isel[0] * 0.f + isel[1] * static_cast<float>(r_medic) +
                          isel[2] * static_cast<float>(r_eaf);
       rank[k] = static_cast<int>(rintf(rsel));
       ev[k] = alloc[k] && evicted >= 0;
-      eidx[k] = hash_index(evicted, 5u, p.eaf_bits);
+      eidx[k] = ev[k] ? eaf_mod.of(evicted, 5u) : 0;
       n_ev += ev[k];
+      // claim the set: last write wins in slot order
+      if (alloc[k]) atomicMax(&p_alloc[si], s);
+      if (use[k]) atomicMax(&p_rrip[si], s);
 
       // ① classifier observe on this slot's rows
-      c_hits[k] += hit[k] ? 1 : 0;
-      c_acc[k] += valid ? 1 : 0;
+      c_hits[k] += h ? 1 : 0;
       c_smp[k] += use[k] ? 1 : 0;
-      const bool due = static_cast<float>(c_acc[k]) >= interval;
-      const float ratio_now =
-          static_cast<float>(c_hits[k]) / static_cast<float>(max(c_smp[k], 1));
-      int t = 2;
-      if (ratio_now <= p.mostly_miss) t = 1;
-      if (ratio_now <= p.eps) t = 0;
-      if (ratio_now >= p.mostly_hit) t = 3;
-      if (ratio_now >= p.one_minus_eps) t = 4;
-      if (!(static_cast<float>(c_smp[k]) >= min_samples)) t = 2;
-      if (due && c_win[k] < max_windows) c_wt[k] = t;
-      if (due) {
+      if (valid) {
+        c_acc[k] += 1;
+        if (pi > 0) c_mod[k] = c_mod[k] + 1 == pi ? 0 : c_mod[k] + 1;
+      }
+      // the window's ratio and label only where the window ends
+      if (static_cast<float>(c_acc[k]) >= interval) {
+        const float ratio_now =
+            static_cast<float>(c_hits[k]) / static_cast<float>(max(c_smp[k], 1));
+        int t = 2;
+        if (ratio_now <= p.mostly_miss) t = 1;
+        if (ratio_now <= p.eps) t = 0;
+        if (ratio_now >= p.mostly_hit) t = 3;
+        if (ratio_now >= p.one_minus_eps) t = 4;
+        if (!(static_cast<float>(c_smp[k]) >= min_samples)) t = 2;
+        if (c_win[k] < max_windows) c_wt[k] = t;
         c_ratio[k] = ratio_now;
         c_win[k] += 1;
-        c_hits[k] = c_acc[k] = c_smp[k] = 0;
+        c_hits[k] = c_acc[k] = c_smp[k] = c_mod[k] = 0;
       }
 
       const int o = lane * p.B + s;
@@ -256,45 +439,47 @@ __global__ void __launch_bounds__(kMaxThreads)
       rec.valid[o] = valid;
       rec.byp[o] = byp;
       rec.use_l2[o] = use[k];
-      rec.hit[o] = hit[k];
+      rec.hit[o] = h;
       rec.hp[o] = sched_medic && wt >= 3;
       rec.victim_type[o] = vtype;
       rec.ev_valid[o] = ev[k];
     }
-    __syncthreads();
-
-    // ---- 2. resolve: last writer per set, PC counters, eviction count ----
-#pragma unroll
-    for (int k = 0; k < SPT; ++k) {
-      const int s = tid + k * blockDim.x;
-      if (s >= p.B) continue;
-      if (alloc[k]) atomicMax(&p_alloc[sidx[k]], s);
-      if (use[k]) atomicMax(&p_rrip[sidx[k]], s);
-      const bool valid = addr[k] >= 0 && ok[k];
-      if (hit[k]) atomicAdd(&st.pc_hits[pidx[k]], 1);
-      if (use[k]) atomicAdd(&st.pc_acc[pidx[k]], 1);
-      if (valid) atomicAdd(&st.pc_req[pidx[k]], 1);
-    }
     if (n_ev) atomicAdd(&s_nev, n_ev);
     __syncthreads();
 
-    // ---- 3. write: winners only; EAF stamps; generation reset -------------
+    // ---- 2. write: PC counters, winners only, EAF stamps, generation -------
 #pragma unroll
     for (int k = 0; k < SPT; ++k) {
       const int s = tid + k * blockDim.x;
       if (s >= p.B) continue;
-      const int base = sidx[k] * p.ways;
+      if (hit[k]) atomicAdd(&pc_hits[pidx[k]], 1);
+      if (use[k]) atomicAdd(&pc_acc[pidx[k]], 1);
+      if (addr[k] >= 0 && ok[k]) atomicAdd(&pc_req[pidx[k]], 1);
+      const int base = sidx[k] * ways;
       if (alloc[k] && p_alloc[sidx[k]] == s) {
-        st.tags[base + victim[k]] = addr[k];
-        st.meta[base + victim[k]] = wlab[k];
+        tags[base + victim[k]] = addr[k];
+        meta[base + victim[k]] = wlab[k];
       }
       if (use[k] && p_rrip[sidx[k]] == s) {
-        for (int w = 0; w < p.ways; ++w) {
-          const int r = (hit[k] && w == hit_way[k]) ? 0 : st.rrip[base + w];
-          st.rrip[base + w] = (alloc[k] && w == victim[k]) ? rank[k] : r + shift[k];
+        // the lane-start row, promoted and aged; the victim takes the rank
+        const int hw = hit[k] ? hit_way[k] : -1, vic = alloc[k] ? victim[k] : -1;
+        auto next = [&](int w, int r) { return w == vic ? rank[k] : (w == hw ? 0 : r) + shift[k]; };
+        if (v4) {
+  #pragma unroll
+        for (int w = 0; w < ways; w += 4) {
+            int4* row = reinterpret_cast<int4*>(rrip + base + w);
+            int4 r = *row;
+            r.x = next(w, r.x);
+            r.y = next(w + 1, r.y);
+            r.z = next(w + 2, r.z);
+            r.w = next(w + 3, r.w);
+            *row = r;
+          }
+        } else {
+          for (int w = 0; w < ways; ++w) rrip[base + w] = next(w, rrip[base + w]);
         }
       }
-      if (ev[k]) st.eaf[eidx[k]] = gen0;
+      if (ev[k]) eaf[eidx[k]] = gen0;
     }
     if (tid == 0) {
       const int ctr = s_ctr + s_nev;
@@ -304,46 +489,94 @@ __global__ void __launch_bounds__(kMaxThreads)
       s_nev = 0;
     }
     __syncthreads();
-
-    // clear the pointer entries this lane touched (read phases of the next
-    // lane never look at them; its resolve phase follows a barrier)
-#pragma unroll
-    for (int k = 0; k < SPT; ++k) {
-      if (tid + k * blockDim.x >= p.B) continue;
-      if (alloc[k]) p_alloc[sidx[k]] = -1;
-      if (use[k]) p_rrip[sidx[k]] = -1;
-    }
   }
 
 #pragma unroll
   for (int k = 0; k < SPT; ++k) {
     const int s = tid + k * blockDim.x;
     if (s >= p.B) continue;
-    st.hits[s] = c_hits[k];
-    st.acc[s] = c_acc[k];
-    st.wtype[s] = c_wt[k];
-    st.windows[s] = c_win[k];
-    st.sampled[s] = c_smp[k];
-    st.ratio[s] = c_ratio[k];
+    out.hits[s] = c_hits[k];
+    out.acc[s] = c_acc[k];
+    out.wtype[s] = c_wt[k];
+    out.windows[s] = c_win[k];
+    out.sampled[s] = c_smp[k];
+    out.ratio[s] = c_ratio[k];
   }
-  __syncthreads();
+  // every state write happened before the last lane's (or the copy-in's)
+  // barrier: write the whole resident state out, touched sets or not
+  if (kResident) {
+    copy_ints<false>(out.tags, tags, sw);
+    copy_ints<false>(out.rrip, rrip, sw);
+    copy_ints<false>(out.meta, meta, sw);
+    copy_ints<false>(out.eaf, eaf, p.eaf_bits);
+    copy_ints<false>(out.pc_hits, pc_hits, p.pc_entries);
+    copy_ints<false>(out.pc_acc, pc_acc, p.pc_entries);
+    copy_ints<false>(out.pc_req, pc_req, p.pc_entries);
+  }
   if (tid == 0) {
-    *st.eaf_gen = s_gen;
-    *st.eaf_ctr = s_ctr;
+    *out.eaf_gen = s_gen;
+    *out.eaf_ctr = s_ctr;
   }
 }
 
-template <int SPT>
+// the least dynamic shared memory an instance's layout takes, in bytes
+size_t smem_needed(const Params& p, bool resident) {
+  size_t ints = 4 * static_cast<size_t>(round4(p.sets));
+  if (resident)
+    ints += 3 * static_cast<size_t>(round4(p.sets * p.ways)) + round4(p.eaf_bits) +
+            3 * static_cast<size_t>(round4(p.pc_entries));
+  return ints * sizeof(int);
+}
+
+template <int SPT, bool kResident, int kWays, int kThreads>
 cudaError_t launch(int threads, size_t smem, cudaStream_t stream, const Params& p,
-                   const Inputs& in, const State& st, const Records& rec) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        wave_cache_kernel<SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+                   const Inputs& in, const Cache& cin, const Cache& out, const Records& rec) {
+  static size_t allowed[kMaxDevices] = {};  // this instance's opt-in, per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > allowed[dev])) {
+    e = cudaFuncSetAttribute(wave_cache_kernel<SPT, kResident, kWays, kThreads>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
+    if (dev < kMaxDevices) allowed[dev] = smem;
   }
-  wave_cache_kernel<SPT><<<1, threads, smem, stream>>>(p, in, st, rec);
+  wave_cache_kernel<SPT, kResident, kWays, kThreads><<<1, threads, smem, stream>>>(p, in, cin,
+                                                                                  out, rec);
   return cudaGetLastError();
+}
+
+// the paper's 8 ways get their own instances (rows fully unrolled)
+template <int SPT, bool kResident, int kThreads>
+cudaError_t launch_ways(int threads, size_t smem, cudaStream_t s, const Params& p,
+                        const Inputs& in, const Cache& cin, const Cache& out,
+                        const Records& rec) {
+  if (p.ways == 8)
+    return launch<SPT, kResident, 8, kThreads>(threads, smem, s, p, in, cin, out, rec);
+  return launch<SPT, kResident, 0, kThreads>(threads, smem, s, p, in, cin, out, rec);
+}
+
+template <bool kResident>
+cudaError_t launch_spt(int spt, int threads, size_t smem, cudaStream_t s, const Params& p,
+                       const Inputs& in, const Cache& cin, const Cache& out,
+                       const Records& rec) {
+  constexpr int M = kMidThreads, X = kMaxThreads;
+  if (spt == 1) return launch_ways<1, kResident, M>(threads, smem, s, p, in, cin, out, rec);
+  if (spt == 2) return launch_ways<2, kResident, M>(threads, smem, s, p, in, cin, out, rec);
+  if (spt == 4) return launch_ways<4, kResident, M>(threads, smem, s, p, in, cin, out, rec);
+  if (spt == 8) return launch_ways<8, kResident, X>(threads, smem, s, p, in, cin, out, rec);
+  return cudaErrorInvalidValue;
+}
+
+Cache cache_at(const void* const* q) {
+  Cache c;
+  int** ints[] = {&c.tags,    &c.rrip,   &c.meta,   &c.eaf,  &c.eaf_gen, &c.eaf_ctr,
+                  &c.pc_hits, &c.pc_acc, &c.pc_req, &c.hits, &c.acc,     &c.wtype};
+  for (int i = 0; i < 12; ++i) *ints[i] = (int*)q[i];
+  c.ratio = (float*)q[12];
+  c.windows = (int*)q[13];
+  c.sampled = (int*)q[14];
+  return c;
 }
 
 }  // namespace
@@ -354,49 +587,54 @@ const char* wave_cache_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launch one wave's cache pass on `stream`. Every pointer is a contiguous
-// device buffer (bool as one byte). The state and classifier buffers are
-// updated in place; the records [L, B] are written. Returns the cudaError_t
-// of the launch.
-int wave_cache_launch(int B, int L, int sets, int ways, int eaf_bits, int pc_entries,
-                      int rrip_max, int eaf_capacity, float lane_skew,
-                      float sampling_interval, float probe_interval, float mostly_hit,
-                      float mostly_miss, float eps, float one_minus_eps, const void* addr_lb,
-                      const void* pc_b, const void* owt_b, const void* slot_ok,
-                      const void* tokens_b, const void* t0, const void* bypass_sel,
-                      const void* ins_sel, const void* sched_medic, const void* rand_p,
-                      const void* label_sel, const void* reclass_interval,
-                      const void* pa_probe_interval, void* tags, void* rrip, void* meta,
-                      void* eaf, void* eaf_gen, void* eaf_ctr, void* pc_hits, void* pc_acc,
-                      void* pc_req, void* hits, void* acc, void* wtype, void* ratio,
-                      void* windows, void* sampled, void* r_t, void* r_addr, void* r_valid,
-                      void* r_byp, void* r_use, void* r_hit, void* r_hp, void* r_vt,
-                      void* r_ev, void* stream) {
-  if (B < 1 || L < 0 || sets < 1 || ways < 1) return static_cast<int>(cudaErrorInvalidValue);
-  Params p{B, L, sets, ways, eaf_bits, pc_entries, rrip_max, eaf_capacity,
-           lane_skew, sampling_interval, probe_interval, mostly_hit, mostly_miss, eps,
-           one_minus_eps};
-  Inputs in{(const int*)addr_lb,   (const int*)pc_b,          (const int*)owt_b,
-            (const uint8_t*)slot_ok, (const uint8_t*)tokens_b, (const float*)t0,
-            (const float*)bypass_sel, (const float*)ins_sel,  (const float*)sched_medic,
-            (const float*)rand_p,    (const float*)label_sel, (const float*)reclass_interval,
-            (const float*)pa_probe_interval};
-  State st{(int*)tags,    (int*)rrip,   (int*)meta,    (int*)eaf,     (int*)eaf_gen,
-           (int*)eaf_ctr, (int*)pc_hits, (int*)pc_acc, (int*)pc_req,  (int*)hits,
-           (int*)acc,     (int*)wtype,  (int*)windows, (int*)sampled, (float*)ratio};
-  Records rec{(float*)r_t,       (int*)r_addr,     (uint8_t*)r_valid,
-              (uint8_t*)r_byp,   (uint8_t*)r_use,  (uint8_t*)r_hit,
-              (uint8_t*)r_hp,    (int*)r_vt,       (uint8_t*)r_ev};
-  const int spt = (B + kMaxThreads - 1) / kMaxThreads;
-  const int threads = spt == 1 ? ((B + 31) / 32) * 32 : kMaxThreads;
-  const size_t smem = 2 * static_cast<size_t>(sets) * sizeof(int);
+// Launch one wave's cache pass on `stream`.
+//   dims   (host) int[8]: B, L, sets, ways, eaf_bits, pc_entries, rrip_max,
+//          eaf_capacity;
+//   consts (host) float[7]: lane_skew, sampling_interval, probe_interval,
+//          mostly_hit, mostly_miss, eps, one_minus_eps;
+//   ptrs   (host) 52 device pointers, each a contiguous buffer (bool as
+//          one byte): the wave's inputs addr_lb, pc_b, owt_b, slot_ok,
+//          tokens_b, t0; the policy's bypass_sel, ins_sel, sched_medic,
+//          rand_p, label_sel, reclass_interval, probe_interval; the input
+//          state tags, rrip, meta, eaf, eaf_gen, eaf_ctr, pc_hits, pc_acc,
+//          pc_req and classifier rows hits, acc, wtype, ratio, windows,
+//          sampled; the same 15 for the outputs; the 9 records [L, B] t,
+//          addr, valid, byp, use_l2, hit, hp, victim_type, ev_valid;
+//   resident != 0 keeps the state in shared memory (else in the outputs);
+//   threads, spt (slots a thread: 1, 2, 4 or 8) and smem_bytes (dynamic
+//          shared memory) are the host's plan (plan_wave_cache in
+//          kernels/cache_pass/ops.py), launched as they are.
+// The inputs are read only. Returns the cudaError_t of the launch;
+// cudaErrorInvalidValue for a plan that does not cover the wave or the
+// instance's layout.
+int wave_cache_launch(const void* dims, const void* consts, const void* ptrs, int resident,
+                      int threads, int spt, int smem_bytes, void* stream) {
+  const int* d = static_cast<const int*>(dims);
+  const float* c = static_cast<const float*>(consts);
+  const void* const* q = static_cast<const void* const*>(ptrs);
+  Params p{d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7],
+           c[0], c[1], c[2], c[3], c[4], c[5], c[6]};
+  if (p.B < 1 || p.L < 0 || p.sets < 1 || p.ways < 1 || p.eaf_bits < 1 || p.pc_entries < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Inputs in{(const int*)q[0],     (const int*)q[1],     (const int*)q[2],
+            (const uint8_t*)q[3], (const uint8_t*)q[4], (const float*)q[5],
+            (const float*)q[6],   (const float*)q[7],   (const float*)q[8],
+            (const float*)q[9],   (const float*)q[10],  (const float*)q[11],
+            (const float*)q[12]};
+  const Cache cin = cache_at(q + 13), out = cache_at(q + 28);
+  Records rec{(float*)q[43],   (int*)q[44],     (uint8_t*)q[45],
+              (uint8_t*)q[46], (uint8_t*)q[47], (uint8_t*)q[48],
+              (uint8_t*)q[49], (int*)q[50],     (uint8_t*)q[51]};
+  // the instances of 1, 2 and 4 slots a thread take up to 512 threads, of 8
+  // up to 1024
+  if (threads < 32 || threads % 32 != 0 || threads > (spt == 8 ? kMaxThreads : kMidThreads) ||
+      static_cast<long long>(spt) * threads < p.B || smem_bytes < 0 ||
+      static_cast<size_t>(smem_bytes) < smem_needed(p, resident != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(smem_bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (spt == 1) e = launch<1>(threads, smem, s, p, in, st, rec);
-  else if (spt == 2) e = launch<2>(threads, smem, s, p, in, st, rec);
-  else if (spt <= 4) e = launch<4>(threads, smem, s, p, in, st, rec);
-  else if (spt <= 8) e = launch<8>(threads, smem, s, p, in, st, rec);
-  else e = cudaErrorInvalidValue;
+  const cudaError_t e = resident ? launch_spt<true>(spt, threads, smem, s, p, in, cin, out, rec)
+                                 : launch_spt<false>(spt, threads, smem, s, p, in, cin, out, rec);
   return static_cast<int>(e);
 }
 

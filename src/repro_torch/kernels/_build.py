@@ -125,9 +125,11 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    """The current CUDA stream of the tensor's device."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t) -> int:
+    """Handle of the current CUDA stream of the tensor's device, for a
+    ``c_void_p`` argument: read through PyTorch's raw-stream accessor,
+    which builds no ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def resolve_backend(kind: str, backend: str, device) -> str:

@@ -5,9 +5,9 @@ The engine runs a *real* decoder LM on the card: admission -> prefill ->
 batched decode steps, with the KV cache of every slot physically managed
 at block granularity by ``MedicPoolManager``:
 
-  * on eviction a block's K/V payload is read out of the cache with the
-    pool-gather kernel (``kernels/medic_gather``), copied to a host-side
-    store and ZEROED in the device cache;
+  * on eviction a block's K/V payload is read out of the cache with one
+    launch of the pool-gather kernel (``kernels/medic_gather``, K and V
+    together), copied to a host-side store and ZEROED in the device cache;
   * on fetch it is restored before the decode step runs;
   * sequences whose fetches have not completed (two-queue transfer model)
     skip decode steps (the warp-stall analogue).
@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.engine import resolve_device
-from repro_torch.kernels.medic_gather.ops import medic_gather
+from repro_torch.kernels.medic_gather.ops import medic_gather_pools
 from repro_torch.models.model import build_model
 from repro_torch.serving.pool import MedicPoolManager, PoolConfig
 from repro_torch.serving.request import Request, ServeWorkload, generate_requests
@@ -72,6 +72,18 @@ class EngineCounts:
 
 
 COUNTS = EngineCounts()
+
+
+def offload_table(n_layers: int, n_slots: int, pages: int, slot: int,
+                  idx: int, device) -> torch.Tensor:
+    """The offload read's block table, i32[n_layers, 1]: every layer's
+    cache [L, slots, pages * page, ...] seen as one pool of blocks, block
+    ``idx`` of ``slot`` in each layer, built on ``device`` by one
+    ``arange``."""
+    stride = n_slots * pages
+    start = slot * pages + idx
+    return torch.arange(start, start + n_layers * stride, stride,
+                        dtype=torch.int32, device=device).view(n_layers, 1)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
@@ -127,14 +139,13 @@ class ServeEngine:
         kv = self._kv_leaves()
         n_layers, n_slots = kv["k"].shape[:2]
         pages = self.ecfg.max_len // self.bs
-        # every layer's cache as one pool of blocks; one block per layer
-        tbl = ((torch.arange(n_layers, dtype=torch.int32) * n_slots + slot)
-               * pages + idx).view(n_layers, 1).to(self.device)
+        tbl = offload_table(n_layers, n_slots, pages, slot, idx, self.device)
         pool_shape = (n_layers * n_slots * pages, self.bs) + \
             tuple(kv["k"].shape[3:])
-        k = medic_gather(kv["k"].view(pool_shape), tbl, backend=self.backend)
-        v = medic_gather(kv["v"].view(pool_shape), tbl, backend=self.backend)
-        self.host_store[key] = torch.stack([k[:, 0], v[:, 0]]).cpu()
+        kv_blk = medic_gather_pools((kv["k"].view(pool_shape),
+                                     kv["v"].view(pool_shape)), tbl,
+                                    backend=self.backend)
+        self.host_store[key] = kv_blk[:, :, 0].cpu()
         lo = idx * self.bs
         kv["k"][:, slot, lo:lo + self.bs] = 0
         kv["v"][:, slot, lo:lo + self.bs] = 0

@@ -87,6 +87,54 @@ def test_wave_cache_kernel_bitwise_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sets,b,lanes,hi,ways", CS.CACHE_EXTRA + [
+    (512, 512, 16, 4000, 8), (4, 12, 5, 30, 8)])
+def test_wave_cache_both_instances_on_card(cuda_device, sets, b, lanes, hi,
+                                           ways):
+    """The shared-memory-resident and the global-state instances against
+    the plain version, bitwise; sparse waves leave most sets untouched, and
+    those must reach the outputs unchanged."""
+    import numpy as np
+    prm = SimParams(sets=sets, ways=ways)
+    st, args, pa = CS.cache_case(np.random.default_rng(sets + b), 2 * b, b,
+                                 lanes, prm, BL.MEDIC, hi)
+    assert CS._wave_cache_both(st, args, prm, pa, f"sets={sets}") == 0.0
+    if lanes * b < sets // 4:                  # a sparse wave
+        plain, _, _ = CPASS._ref.wave_cache_pass_ref(st, *args, prm, pa)
+        kern, _, _ = CPASS.wave_cache_cuda(st, *args, prm, pa)
+        same = (plain.tags == st.tags).all(dim=1)
+        assert int(same.sum()) > sets // 2
+        assert torch.equal(kern.tags[same], st.tags[same])
+        assert torch.equal(kern.rrip[same], st.rrip[same])
+
+
+@pytest.mark.cuda
+def test_medic_gather_routes_on_card(cuda_device):
+    """The 16-byte loop and the byte route, over one pool and several,
+    with holes and an all-hole table; the one-pool form is the pools
+    form's first row."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    pools = [CS._randn((50, 16, 8, 128), torch.bfloat16, gen, cuda_device)
+             for _ in range(3)]
+    small = [CS._randn((9, 3, 1, 5), torch.float32, gen, cuda_device)
+             for _ in range(2)]
+    holes = torch.randint(0, 50, (4, 7), generator=gen, device=cuda_device)
+    holes[0, ::2] = -1
+    tables = (holes.to(torch.int32),
+              torch.full((2, 3), -1, dtype=torch.int32, device=cuda_device),
+              torch.tensor([[49, 0]], dtype=torch.int32, device=cuda_device))
+    for tbl in tables:
+        for ps in (pools[:1], pools[:2], pools, small):
+            t = tbl.clamp(max=ps[0].shape[0] - 1) if ps is small else tbl
+            t = torch.where(tbl < 0, tbl, t).contiguous()
+            outs = GATHER.medic_gather_pools_cuda(ps, t)
+            assert outs.shape[0] == len(ps)
+            for o, p in zip(outs, ps):
+                assert torch.equal(o, GATHER._ref.medic_gather_ref(p, t))
+            assert torch.equal(GATHER.medic_gather_cuda(ps[0], t), outs[0])
+
+
+@pytest.mark.cuda
 def test_engine_kernels_match_plain_on_card(cuda_device):
     tr = WL.generate(WL.WORKLOADS["BFS"], 0)
     args = (tr["lines"][:16], tr["pcs"][:16], tr["compute_gap"])
