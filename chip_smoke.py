@@ -9,13 +9,15 @@ without them. Phases, one JSON line each on stdout (with its seconds):
   2. build    — all seven CUDA kernels compiled from ``src/repro_torch/csrc``
      (one ``nvcc`` each, all at once);
   3. wave_queue — the timing-pass kernel against its plain PyTorch
-     version on the card, bitwise, on fuzzed waves; ms and device ms per
-     call;
+     version on the card, bitwise, on fuzzed waves of 1 to 262,144 slots
+     (one cluster pass and several); ms and device ms per call at N 8192
+     (HAMMER2K's wave), 16,384 (HAMMER4K's) and 262,144 (WIDE64K's);
   4. wave_cache — the cache-pass kernel against its plain version,
      bitwise on state, classifier rows and the nine records, in both of
      its instances (state in shared memory or in global memory) on every
-     case, sparse waves over many sets and the widest waves included; ms
-     and device ms per call of each instance at the path's wave;
+     case, sparse waves over many sets and the widest waves (B 8193 and
+     16,384) included; ms and device ms per call of each instance at the
+     path's wave and at B 16,384;
   5. golden   — PHASED256 and PHASED_RECOVER256 through
      ``simulate_sweep(engine="wavefront", device="cuda")`` with the
      five-policy labeling ladder: IPC within 1e-6 of the goldens, one
@@ -25,7 +27,9 @@ without them. Phases, one JSON line each on stdout (with its seconds):
   6. scale    — the wavefront main path: HAMMER2K × {Baseline, PCAL, WByp,
      MeDiC} (the paper's hierarchy, 2048 warps, waves of 512) with every
      launch count set to 0 just before and read just after, then
-     HAMMER4K × MeDiC;
+     HAMMER4K × MeDiC and WIDE64K × MeDiC (65,536 warps, waves of 16,384
+     slots; its trace cut as ``WIDE_INSTR`` says), each with one launch of
+     each kernel per wave;
   7. medic_gather, decode_attention, flash_attention — each serving-path
      kernel against its plain version on the card at the path's shapes
      (the gather bitwise, one pool and several in one launch, both of its
@@ -53,8 +57,11 @@ without them. Phases, one JSON line each on stdout (with its seconds):
  10. rg_lru, mlstm — the hybrid and ssm paths' kernels against their
      plain versions on fuzz grids and at the paths' shapes (rg_lru
      bitwise; mlstm within 5e-4 / 5e-3, the reference's own, on the
-     outputs and the final state), with ms and device ms per call and
-     the plain version's ms (no single PyTorch call computes either);
+     outputs and the final state, at S 1, 63, 64, 65 and 1024, Dk 192 and
+     256, bf16 and float32), with ms, device ms and queued ms per call
+     (mlstm also by kernel, and against the CPU-tested model of its
+     product precision) and the plain version's ms (no single PyTorch call
+     computes either);
  11. hybrid_serve, ssm_serve — the hybrid and ssm main paths at full
      width: ``build_model(cfg).init_params`` (random weights from seed 0)
      -> ``prefill`` -> 32 greedy ``decode`` steps, RecurrentGemma-2B on 2
@@ -121,9 +128,10 @@ GOLDEN_RECOVER256_IPC = {"Baseline": 0.089472, "MeDiC-stale": 0.083859,
                          "MeDiC-oracle": 0.153922}
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 non-tensor,
-#: bf16 dense tensor cores
+#: TF32 and bf16 dense tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
 
 #: the reference's examples/serve_medic.py A/B as the JAX package gives it
@@ -278,10 +286,30 @@ def wave_case(rng, n, dyadic=True, empty=False, warm=True):
     return to, QueueCarry(*(torch.tensor(x, device=DEV) for x in carry))
 
 
+#: fuzzed wave sizes: tiny, one warp of slots, one block, blocks of the
+#: cluster with a ragged last one, HAMMER2K's 8192 and HAMMER4K's 16,384
+#: slots, one pass and two (65,536 slots a pass), and WIDE64K's 262,144
+#: (four passes)
+WQ_SIZES = (1, 17, 256, 600, 1025, 8192, 16384, 40000, 65537, 262144)
+
+
+def _wave_queue_timing(n: int) -> dict:
+    """ms (CUDA events around the wrapper) and device ms of one wave of
+    ``n`` slots, the bytes it moves and the plan it runs."""
+    slots, carry = wave_case(np.random.default_rng(1), n, False)
+    run = lambda: WSCAN.wave_queue_cuda(*slots, carry,  # noqa: E731
+                                        exact=False, **QKW)
+    out = run()
+    plan = WSCAN.plan_wave_queue(n)
+    return dict(ms=time_ms(run), device_ms=device_ms(run),
+                bytes=nbytes(list(slots) + list(carry) + flat(out)),
+                plan=plan._asdict())
+
+
 def phase_wave_queue() -> dict:
     cases = []
     rng = np.random.default_rng(0)
-    for n in (1, 17, 256, 600, 8192, 16384):
+    for n in WQ_SIZES:
         for dyadic in (True, False):
             for exact in (False, True):
                 cases.append((f"n{n}/{'dy' if dyadic else 'nd'}/"
@@ -289,6 +317,8 @@ def phase_wave_queue() -> dict:
                               wave_case(rng, n, dyadic), exact))
     cases.append(("cold", wave_case(rng, 600, False, warm=False), False))
     cases.append(("empty", wave_case(rng, 600, False, empty=True), False))
+    cases.append(("cold-wide", wave_case(rng, 40000, False, warm=False),
+                  False))
     for k in range(4):
         cases.append((f"single{k}", wave_case(rng, 1, False), k % 2 == 1))
     err = 0.0
@@ -300,19 +330,18 @@ def phase_wave_queue() -> dict:
         e = max_abs_err(flat(kern), flat(plain))
         check(e == 0.0, f"wave_queue {name}: kernel != plain (err {e})")
         err = max(err, e)
-    # timing at the main path's wave: HAMMER2K, 512 warps x 16 lanes
+    # timing at the main path's wave (HAMMER2K, 512 warps x 16 lanes), at
+    # HAMMER4K's and at WIDE64K's
+    main = _wave_queue_timing(8192)
     slots, carry = wave_case(np.random.default_rng(1), 8192, False)
-    run = lambda: WSCAN.wave_queue_cuda(*slots, carry,  # noqa: E731
-                                        exact=False, **QKW)
-    ms, dev_ms = time_ms(run), device_ms(run)
     plain_ms = time_ms(lambda: WSCAN._ref.wave_queue_recovery_ref(
         *slots, carry, exact=False, **QKW), iters=5)
-    out = WSCAN.wave_queue_cuda(*slots, carry, exact=False, **QKW)
-    bytes_moved = nbytes(list(slots) + list(carry) + flat(out))
     # ~40 float operations per slot (8 scans + floors and selects)
-    ops = 40 * 8192
-    return dict(cases=len(cases), max_abs_err=err, ms=ms, device_ms=dev_ms,
-                plain_ms=plain_ms, n=8192, bytes=bytes_moved, ops=ops)
+    return dict(cases=len(cases), max_abs_err=err, ms=main["ms"],
+                device_ms=main["device_ms"], plain_ms=plain_ms, n=8192,
+                plan=main["plan"], bytes=main["bytes"], ops=40 * 8192,
+                n16384=_wave_queue_timing(16384),
+                n262144=_wave_queue_timing(262144))
 
 
 # ---------------------------------------------------------------------------
@@ -364,10 +393,12 @@ CACHE_POLICIES = (BL.BASELINE, BL.MEDIC, BL.PCAL, BL.WBYP)
 #: requests over many sets, where every set the wave does not touch must
 #: still reach the outputs (1024 sets keep the state in shared memory,
 #: 131 KB; 8192 do not fit and take the global-state instance by the
-#: plan); the widest waves, 3 and 8 slots a thread; way counts other than
-#: the paper's 8, in rows of 16-byte words (4, 12) and not (6)
+#: plan); the widest waves, 3, 8 and 16 slots a thread (B 16,384 is
+#: WIDE64K's wave); way counts other than the paper's 8, in rows of
+#: 16-byte words (4, 12) and not (6)
 CACHE_EXTRA = [(1024, 4, 3, 4000, 8), (8192, 8, 2, 4000, 8),
                (1024, 3000, 4, 4000, 8), (512, 8192, 3, 4000, 8),
+               (512, 8193, 2, 4000, 8), (512, 16384, 3, 4000, 8),
                (16, 40, 8, 60, 6), (8, 64, 8, 60, 12), (32, 100, 6, 80, 4)]
 
 
@@ -418,11 +449,22 @@ def phase_wave_cache() -> dict:
     bytes_moved = nbytes(state_in + flat(args) + list(pa) + flat(out))
     # ~60 integer/select operations per request and way-loop
     ops = 60 * 512 * 16
+    # and at WIDE64K's wave: B = 16,384, 16 lanes
+    st, args, pa = cache_case(np.random.default_rng(4), 32768, 16384, 16,
+                              prm, BL.MEDIC, addr_hi=1 << 20)
+    wide = lambda: CPASS.wave_cache_cuda(st, *args, prm, pa)  # noqa: E731
+    wide_g = lambda: CPASS.wave_cache_cuda(st, *args, prm, pa,  # noqa: E731
+                                           resident=False)
+    b16384 = dict(ms=time_ms(wide, iters=5),
+                  device_ms=device_ms(wide, iters=5),
+                  global_ms=time_ms(wide_g, iters=5),
+                  global_device_ms=device_ms(wide_g, iters=5),
+                  plan=CPASS.plan_wave_cache(prm, 16384)._asdict())
     return dict(cases=2 * len(runs), resident_cases=resident,
                 max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 resident=plan.resident, smem_bytes=plan.smem_bytes,
                 global_ms=time_ms(glob), global_device_ms=device_ms(glob),
-                b=512, lanes=16, bytes=bytes_moved, ops=ops)
+                b=512, lanes=16, bytes=bytes_moved, ops=ops, b16384=b16384)
 
 
 # ---------------------------------------------------------------------------
@@ -494,20 +536,46 @@ def phase_golden() -> dict:
     return report
 
 
+#: WIDE64K (65,536 warps, the default wave of 16,384 slots): the spec
+#: lowers to an address space past int32 at 65,536 warps (tracegen's
+#: make_layout raises, the reference's too, at any instruction count), so
+#: the run's trace is the spec lowered at 32,768 warps for seeds 0 and 1,
+#: side by side on the warp axis (each half's lines are private to its
+#: warps; the halves share one address space); instructions cut from 64
+#: to WIDE_INSTR to keep the script's time
+WIDE_INSTR = 8
+
+
+def wide64k_trace():
+    spec = dataclasses.replace(TG.SHARD_STRESS_SPECS["WIDE64K"],
+                               n_warps=32768, n_instr=WIDE_INSTR)
+    halves = [TG.generate(spec, seed) for seed in (0, 1)]
+    tr = {k: np.concatenate([h[k] for h in halves], axis=1)
+          for k in ("lines", "pcs", "oracle_wtype")}
+    tr["compute_gap"] = halves[0]["compute_gap"]
+    return tr
+
+
 def phase_scale() -> dict:
     """HAMMER2K × 4 policies (the counted main-path run), then HAMMER4K ×
-    MeDiC."""
+    MeDiC and WIDE64K × MeDiC (the widest wave: 16,384 slots)."""
     report = {}
-    for name, pols in (("HAMMER2K", (BL.BASELINE, BL.PCAL, BL.WBYP,
-                                     BL.MEDIC)),
-                       ("HAMMER4K", (BL.MEDIC,))):
-        spec = TG.STRESS_SPECS[name]
-        tr = TG.generate(spec, 0)
+    runs = (("HAMMER2K", (BL.BASELINE, BL.PCAL, BL.WBYP, BL.MEDIC)),
+            ("HAMMER4K", (BL.MEDIC,)), ("WIDE64K", (BL.MEDIC,)))
+    for name, pols in runs:
+        if name == "WIDE64K":
+            tr, n_warps = wide64k_trace(), 65536
+            cut = dict(n_instr=[64, WIDE_INSTR],
+                       trace="two 32768-warp halves (seeds 0, 1) of the "
+                             "spec: at 65536 warps it overflows int32")
+        else:
+            spec = TG.STRESS_SPECS[name]
+            tr, n_warps, cut = TG.generate(spec, 0), spec.n_warps, None
         requests = int((tr["lines"] >= 0).sum()) * len(pols)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        out = sweep(tr, pols, spec.n_warps)
+        out = sweep(tr, pols, n_warps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         c = counts()
@@ -520,7 +588,9 @@ def phase_scale() -> dict:
         check(all(v > 0 for v in ipc.values()), f"{name} ipc {ipc}")
         report[name] = dict(ipc=ipc, launches=c, wall_s=wall,
                             requests=requests, requests_per_s=requests / wall,
-                            wave_size=WF.default_wave_size(spec.n_warps))
+                            wave_size=WF.default_wave_size(n_warps))
+        if cut:
+            report[name]["cut"] = cut
     return report
 
 
@@ -1150,18 +1220,30 @@ def phase_rg_lru(dev=DEV) -> dict:
     args = case(2, 3072, 2560, 0.9, 0.999)
     ms = time_ms(lambda: RGLRU.rg_lru_cuda(*args), iters=50)
     dev_ms = device_ms(lambda: RGLRU.rg_lru_cuda(*args))
+    # the card's clock with the host hidden, beside the profiler's
+    q_ms = queued_ms(lambda: RGLRU.rg_lru_cuda(*args), iters=50)
     plain_ms = time_ms(lambda: RGLRU._ref.rg_lru_ref(*args), iters=2)
     out = RGLRU.rg_lru_cuda(*args)
     return dict(cases=len(RG_LRU_CASES), max_abs_err=0.0, ms=ms,
-                device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                device_ms=dev_ms, queued_ms=q_ms, plain_ms=plain_ms,
+                library_ms=None,
                 shape=[2, 3072, 2560],
                 bytes=nbytes(list(args) + [out]), ops=2 * out.numel())
 
 
 #: (B, S, H, Dk, Dv, dtype, state): S = 1, S < chunk, whole and ragged
-#: chunks, Dk at the kernel's limit, a nonzero state, the path's shape
+#: chunks (63, 64, 65), Dk at the kernel's limit and off its tile of 16,
+#: a nonzero state, bf16 and float32 at the path's Dk 192 / Dv 384 and at
+#: Dk 256, the path's shape
 MLSTM_CASES = [
     (2, 1, 2, 16, 24, torch.float32, True),
+    (1, 1, 2, 192, 384, torch.bfloat16, True),
+    (2, 63, 2, 192, 384, torch.float32, True),
+    (1, 64, 2, 256, 384, torch.bfloat16, True),
+    (2, 65, 2, 256, 96, torch.bfloat16, True),
+    (1, 65, 3, 100, 40, torch.float32, False),
+    (1, 1024, 2, 192, 384, torch.float32, True),
+    (1, 1024, 1, 256, 384, torch.bfloat16, True),
     (2, 5, 2, 16, 24, torch.float32, True),
     (1, 64, 4, 16, 32, torch.float32, False),
     (2, 70, 2, 32, 100, torch.bfloat16, True),
@@ -1208,20 +1290,35 @@ def phase_mlstm(dev=DEV) -> dict:
     args, _ = _mlstm_inputs(gen, dev, b, s, h, dk, dv, torch.bfloat16, False)
     ms = time_ms(lambda: MLSTM.mlstm_cuda(*args), iters=20)
     dev_ms = device_ms(lambda: MLSTM.mlstm_cuda(*args), iters=10)
+    q_ms = queued_ms(lambda: MLSTM.mlstm_cuda(*args), iters=20)
+    # device µs of each of its two kernels (chunk terms, state recurrence)
+    split = {next((n for n in ("mlstm_chunk_kernel", "mlstm_state_kernel")
+                   if n in k), k): us
+             for k, (_, us) in device_split(lambda: MLSTM.mlstm_cuda(*args),
+                                            iters=10).items()}
     plain_ms = time_ms(lambda: MLSTM._ref.mlstm_chunkwise_ref(*args),
                        iters=5)
     out, st = MLSTM.mlstm_cuda(*args)
+    # the kernel against the CPU-tested model of its product precision
+    m_out, m_st = MLSTM._ref.mlstm_chunkwise_tc_model(*args)
+    model_err = max(float((a - b).abs().max())
+                    for a, b in zip((out,) + st, (m_out,) + m_st))
     state_in = MLSTM._ref.empty_state(b, h, dk, dv, dev)
     # the chunkwise form's products per chunk and (batch, head): q.k and
     # w.v inside the chunk, q.C and the C update across chunks
     chunk = MLSTM._ref.CHUNK
     per_chunk = 2 * chunk * (chunk * dk + chunk * dv + 2 * dk * dv)
     ops = per_chunk * (s // chunk) * b * h
+    moved = nbytes(list(args) + list(state_in) + [out] + list(st))
     return dict(cases=len(MLSTM_CASES), max_abs_err=err, ms=ms,
-                device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
-                shape=[b, s, h, dk, dv],
-                bytes=nbytes(list(args) + list(state_in) + [out] + list(st)),
-                ops=ops)
+                device_ms=dev_ms, queued_ms=q_ms, kernels_us=split,
+                plain_ms=plain_ms, library_ms=None, shape=[b, s, h, dk, dv],
+                bytes=moved,
+                ops=ops, model_err=model_err,
+                # beside the float32 yardstick: the tensor-core rate of the
+                # route (TF32) and the bytes alone
+                bound_tf32_ms=ops / TF32_OPS_PER_S * 1e3,
+                bound_bytes_ms=moved / HBM_BYTES_PER_S * 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -1498,7 +1595,8 @@ def main() -> int:
             launches_by_path=by_path)
         for extra in ("n_split", "pools_ms", "pools_device_ms", "resident",
                       "global_ms", "global_device_ms", "ms_rounds",
-                      "library_ms_rounds"):
+                      "library_ms_rounds", "queued_ms", "bound_tf32_ms",
+                      "bound_bytes_ms", "n16384", "n262144", "b16384"):
             if extra in meas:
                 row[extra] = meas[extra]
         if "hybrid" in meas:   # the attention kernels at the hybrid's shape

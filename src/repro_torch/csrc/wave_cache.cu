@@ -24,7 +24,9 @@
 // dependent lanes, each three block barriers long, with one block per wave.
 //
 // Design. One thread block runs the wave, one thread per slot (SPT slots
-// per thread when B > 512). Each thread keeps its slots' six classifier
+// per thread when B > 512: 2 or 4 on 512 threads, 8 or 16 on 1024; at 16,
+// for waves above 8192 slots only, the per-slot registers spill to local
+// memory). Each thread keeps its slots' six classifier
 // rows in registers across all lanes, and fetches its next lane's address
 // while the current lane runs. The cache state the lanes work on lives in
 // one of two places, chosen by the host from the shapes alone
@@ -69,8 +71,8 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 // waves of up to 2048 slots run on at most 512 threads (1, 2 or 4 slots a
-// thread), which leaves a thread 128 registers; wider waves on 1024 (8 a
-// thread, 64 registers)
+// thread), which leaves a thread 128 registers; wider waves on 1024 (8 or
+// 16 a thread, 64 registers)
 constexpr int kMidThreads = 512;
 constexpr int kMaxDevices = 64;
 
@@ -565,6 +567,7 @@ cudaError_t launch_spt(int spt, int threads, size_t smem, cudaStream_t s, const 
   if (spt == 2) return launch_ways<2, kResident, M>(threads, smem, s, p, in, cin, out, rec);
   if (spt == 4) return launch_ways<4, kResident, M>(threads, smem, s, p, in, cin, out, rec);
   if (spt == 8) return launch_ways<8, kResident, X>(threads, smem, s, p, in, cin, out, rec);
+  if (spt == 16) return launch_ways<16, kResident, X>(threads, smem, s, p, in, cin, out, rec);
   return cudaErrorInvalidValue;
 }
 
@@ -601,7 +604,7 @@ const char* wave_cache_error_string(int err) {
 //          sampled; the same 15 for the outputs; the 9 records [L, B] t,
 //          addr, valid, byp, use_l2, hit, hp, victim_type, ev_valid;
 //   resident != 0 keeps the state in shared memory (else in the outputs);
-//   threads, spt (slots a thread: 1, 2, 4 or 8) and smem_bytes (dynamic
+//   threads, spt (slots a thread: 1, 2, 4, 8 or 16) and smem_bytes (dynamic
 //          shared memory) are the host's plan (plan_wave_cache in
 //          kernels/cache_pass/ops.py), launched as they are.
 // The inputs are read only. Returns the cudaError_t of the launch;
@@ -626,8 +629,8 @@ int wave_cache_launch(const void* dims, const void* consts, const void* ptrs, in
               (uint8_t*)q[46], (uint8_t*)q[47], (uint8_t*)q[48],
               (uint8_t*)q[49], (int*)q[50],     (uint8_t*)q[51]};
   // the instances of 1, 2 and 4 slots a thread take up to 512 threads, of 8
-  // up to 1024
-  if (threads < 32 || threads % 32 != 0 || threads > (spt == 8 ? kMaxThreads : kMidThreads) ||
+  // and 16 up to 1024
+  if (threads < 32 || threads % 32 != 0 || threads > (spt >= 8 ? kMaxThreads : kMidThreads) ||
       static_cast<long long>(spt) * threads < p.B || smem_bytes < 0 ||
       static_cast<size_t>(smem_bytes) < smem_needed(p, resident != 0))
     return static_cast<int>(cudaErrorInvalidValue);

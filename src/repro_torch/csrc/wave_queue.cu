@@ -17,116 +17,205 @@
 // start = c + runmax(v) — and never the sequential max(t, prev_end)
 // recurrence, which rounds differently on non-dyadic times. Occupancies are
 // integer-valued (checked by the wrapper), so every prefix sum is exact in
-// any order and the block-level scans below reproduce the reference bit for
+// any order and any blocking of the scans reproduces the reference bit for
 // bit; max is exactly associative.
 //
-// What bounds it. The work is tiny (N <= 16384 slots, ~40 B each: under
-// 1 MB moved) and a chain of dependent scans: bank -> t_head -> t_da -> row
-// chain -> HP -> HP busy horizon -> LP. It is latency-bound, not bandwidth-
-// or compute-bound: one wave is one block, and the time is the number of
-// dependent scan steps times the cost of a block barrier.
+// What bounds it. The work is tiny (N = B * L slots, ~40 B each: 0.3 MB at
+// N 8192) and a chain of dependent scans: bank occupancy -> bank start ->
+// t_da, row chain -> HP and LP occupancy -> HP start -> HP busy horizon ->
+// LP start. It is latency-bound: its time is the number of dependent
+// cluster-wide steps times their cost, plus each thread's serial walk over
+// its own slots.
 //
-// Design. One thread block of NT threads walks the N slots in chunks of NT,
-// one slot per thread. For each queue family it runs a block-level scan over
-// a QMAX-wide vector (one entry per queue; a slot contributes only to its own
-// queue): warp shuffles, then one shared-memory pass over the warp totals.
-// Across chunks it carries, per queue, the prefix occupancy, the running max,
-// the last go-to-DRAM slot (the open row) and the HP busy horizon. The carry
-// advance of the next wave (busy-until horizons, service-frontier anchors,
-// open rows) is fused: an epilogue pass reduces each field by max over the
-// block, so one launch returns (t_head, t0, row_hit, new carry).
+// Design. One thread-block cluster of up to 8 blocks (one SM each) of T
+// threads; each thread owns K consecutive slots (the blocks, T and K from
+// the host's plan: plan_wave_queue in kernels/wavefront_scan/ops.py; one
+// pass covers up to 8 * 512 * 16 slots). The queue families are fused into
+// five dependent stages; each is one pass of the thread over its own slots
+// and one cluster-wide scan of the thread's per-queue partials (QMAX wide
+// per family: warp shuffles, warp 0 over the warp totals, then the blocks'
+// totals through distributed shared memory at one cluster barrier):
+//   S1 bank occupancy (+) and the row chain's last DRAM slot (max);
+//   S2 bank start (max), HP and LP occupancy (+);
+//   S3 HP start (max);  S4 HP busy horizon (max);  S5 LP start (max).
+// Each pass applies the previous stage's prefix slot by slot (a running
+// per-queue value in registers) and builds the next stage's partials, so a
+// pass costs five scans whatever N, not one per 512-slot chunk. Each block
+// first copies its slots into shared memory with coalesced loads (a
+// thread's own slots are K apart from its neighbours'); there a slot keeps
+// a packed word (bank, channel, flags, row hit), t_s, its row (then c_h or
+// c_l, then hp_end) and one more float (c_b, then t_da or v_l), in [K][T+1]
+// arrays so that both the copy and a warp's per-slot accesses spread over
+// the banks. Above one pass the cluster walks the wave in passes, each scan
+// carrying its per-queue totals to the next. The carry advance of the next
+// wave (busy-until horizons, service-frontier anchors) is folded into the
+// passes that compute its terms: each warp reduces its per-queue maxima
+// with one __reduce_max_sync on order-preserving integer keys, lane 0 folds
+// them into its block's shared memory with atomicMax, and block 0 takes the
+// maximum over the blocks; the open rows come from the row chain's carry.
+// One launch returns (t_head, t0, row_hit, new carry).
 //
 // Row and channel indices arrive precomputed from the wrapper (floor division
 // of the line address, as in the reference: -1 // 32 == -1).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
-#define QMAX 8    // most banks or channels one launch takes
-#define NT 512    // threads per block (one slot each per chunk)
+namespace cg = cooperative_groups;
+
+#define QMAX 8  // most banks or channels one launch takes
 
 namespace {
 
-struct Add {
-  __device__ __forceinline__ float operator()(float a, float b) const { return a + b; }
-};
-struct Max {
-  __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }
-};
+constexpr int kMaxBlocks = 8;     // blocks of the cluster (the portable most)
+constexpr int kMaxThreads = 512;  // threads of a block
+constexpr int kMaxK = 16;         // slots a thread
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMaxW = 3 * QMAX;   // widest scan (S2)
+constexpr int kMaxDevices = 64;
 
-// a[q] for a runtime q without dynamic register indexing
+// the packed slot word in shared memory
+constexpr int kUl2 = 1 << 8, kGd = 1 << 9, kHp = 1 << 10, kByp = 1 << 11, kRh = 1 << 12;
+
+// a[q] for a runtime q < QMAX without dynamic register indexing: a tree of
+// selects, three deep
 __device__ __forceinline__ float pick(const float (&a)[QMAX], int q) {
-  float r = a[0];
-#pragma unroll
-  for (int k = 1; k < QMAX; ++k)
-    if (k == q) r = a[k];
-  return r;
+  const bool b0 = q & 1, b1 = q & 2, b2 = q & 4;
+  const float x0 = b0 ? a[1] : a[0], x1 = b0 ? a[3] : a[2], x2 = b0 ? a[5] : a[4],
+              x3 = b0 ? a[7] : a[6];
+  const float y0 = b1 ? x1 : x0, y1 = b1 ? x3 : x2;
+  return b2 ? y1 : y0;
 }
 
-// Block-wide inclusive scan of x[QMAX] (one independent scan per queue).
-// On return x holds the inclusive and ex the exclusive scan at this thread;
-// the return value, in thread q < QMAX, is queue q's chunk total.
-template <class Op>
-__device__ __forceinline__ float block_scan(float (&x)[QMAX], float (&ex)[QMAX],
-                                            float ident, Op op, float (*sh)[QMAX]) {
+__device__ __forceinline__ void put(float (&a)[QMAX], int q, float v) {
+#pragma unroll
+  for (int k = 0; k < QMAX; ++k)
+    if (k == q) a[k] = v;
+}
+
+__device__ __forceinline__ void add_at(float (&a)[QMAX], int q, float v) {
+#pragma unroll
+  for (int k = 0; k < QMAX; ++k)
+    if (k == q) a[k] = a[k] + v;
+}
+
+__device__ __forceinline__ void max_at(float (&a)[QMAX], int q, float v) {
+#pragma unroll
+  for (int k = 0; k < QMAX; ++k)
+    if (k == q) a[k] = fmaxf(a[k], v);
+}
+
+__device__ __forceinline__ void fill(float (&a)[QMAX], float v) {
+#pragma unroll
+  for (int k = 0; k < QMAX; ++k) a[k] = v;
+}
+
+// order-preserving int key of a float (no NaN here): a < b iff key(a) < key(b)
+__device__ __forceinline__ int fkey(float f) {
+  const int b = __float_as_int(f);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+__device__ __forceinline__ float funkey(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// the shared-memory scratch of the scans
+struct ScanMem {
+  float tot[kMaxWarps][kMaxW];  // the warps' totals, then their prefixes
+  float btot[2][kMaxW];         // the block's totals, by the scans' parity
+  float pre[kMaxW];             // the earlier blocks' and passes' totals
+};
+
+// Cluster-wide exclusive scan of W per-queue entries, one independent scan
+// per entry: entries [0, NA) by +, the rest by max. In: this thread's totals
+// over its slots. Out: the combined totals of every earlier thread of this
+// block and of every thread of the cluster's lower-ranked blocks, with
+// `carry` (the totals of the earlier passes, in shared memory, the same in
+// every block) folded in; `carry` advances by the pass's total. The blocks
+// exchange their totals through distributed shared memory, at one cluster
+// barrier a scan (the totals alternate between two buffers, so the next
+// scan's writes cannot meet this one's reads).
+template <int NA, int W>
+__device__ __forceinline__ void block_scan(float (&x)[W], float* carry, ScanMem& m, int& par,
+                                           cg::cluster_group& cl) {
+  float (*tot)[kMaxW] = m.tot;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
 #pragma unroll
-    for (int q = 0; q < QMAX; ++q) {
-      const float y = __shfl_up_sync(0xffffffffu, x[q], off);
-      if (lane >= off) x[q] = op(y, x[q]);
+    for (int e = 0; e < W; ++e) {
+      const float y = __shfl_up_sync(0xffffffffu, x[e], off);
+      if (lane >= off) x[e] = e < NA ? y + x[e] : fmaxf(y, x[e]);
     }
   }
+  float ex[W];
 #pragma unroll
-  for (int q = 0; q < QMAX; ++q) {
-    const float y = __shfl_up_sync(0xffffffffu, x[q], 1);
-    ex[q] = lane ? y : ident;
+  for (int e = 0; e < W; ++e) {
+    const float y = __shfl_up_sync(0xffffffffu, x[e], 1);
+    ex[e] = lane ? y : (e < NA ? 0.f : -INFINITY);
   }
+  __syncwarp();  // this warp's readers of the previous scan's prefixes are done
   if (lane == 31) {
 #pragma unroll
-    for (int q = 0; q < QMAX; ++q) sh[wid][q] = x[q];
+    for (int e = 0; e < W; ++e) tot[wid][e] = x[e];
   }
   __syncthreads();
-  float pre[QMAX];
+  if (wid == 0) {  // warp 0 scans the warp totals, all entries at once
+    float v[W];
 #pragma unroll
-  for (int q = 0; q < QMAX; ++q) pre[q] = ident;
-  for (int w = 0; w < wid; ++w) {
+    for (int e = 0; e < W; ++e) v[e] = lane < nw ? tot[lane][e] : (e < NA ? 0.f : -INFINITY);
 #pragma unroll
-    for (int q = 0; q < QMAX; ++q) pre[q] = op(pre[q], sh[w][q]);
+    for (int off = 1; off < kMaxWarps; off <<= 1) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const float y = __shfl_up_sync(0xffffffffu, v[e], off);
+        if (lane >= off) v[e] = e < NA ? y + v[e] : fmaxf(y, v[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      const float y = __shfl_up_sync(0xffffffffu, v[e], 1);
+      const float total = __shfl_sync(0xffffffffu, v[e], nw - 1);
+      if (lane < nw) tot[lane][e] = lane ? y : (e < NA ? 0.f : -INFINITY);
+      if (lane == 0) m.btot[par][e] = total;
+    }
   }
+  cl.sync();  // every block's totals are in
+  if (wid == 0 && lane < W) {  // lane e: entry e over the blocks
+    const bool add = lane < NA;
+    const int rank = static_cast<int>(cl.block_rank()), nb = static_cast<int>(cl.num_blocks());
+    float before = add ? 0.f : -INFINITY, all = before, b[kMaxBlocks];
 #pragma unroll
-  for (int q = 0; q < QMAX; ++q) {
-    x[q] = op(pre[q], x[q]);
-    ex[q] = op(pre[q], ex[q]);
+    for (int r = 0; r < kMaxBlocks; ++r)  // every remote load in flight at once
+      b[r] = r < nb ? cl.map_shared_rank(m.btot[par], r)[lane] : before;
+#pragma unroll
+    for (int r = 0; r < kMaxBlocks; ++r) {
+      if (r < rank) before = add ? before + b[r] : fmaxf(before, b[r]);
+      all = add ? all + b[r] : fmaxf(all, b[r]);
+    }
+    const float c = carry[lane];
+    m.pre[lane] = add ? c + before : fmaxf(c, before);
+    carry[lane] = add ? c + all : fmaxf(c, all);
   }
-  float tot = ident;
-  if (threadIdx.x < QMAX)
-    for (int w = 0; w < nw; ++w) tot = op(tot, sh[w][threadIdx.x]);
+  par ^= 1;
   __syncthreads();
-  return tot;
+#pragma unroll
+  for (int e = 0; e < W; ++e)
+    x[e] = e < NA ? (m.pre[e] + tot[wid][e]) + ex[e]
+                  : fmaxf(fmaxf(m.pre[e], tot[wid][e]), ex[e]);
 }
 
-// Block max of acc[2*QMAX]; thread k < 2*QMAX receives entry k's maximum.
-__device__ __forceinline__ float block_max2(float (&acc)[2 * QMAX], float (*sh)[2 * QMAX]) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
+// the warp's maxima of v[q] into out[q] (int keys in shared memory)
+__device__ __forceinline__ void fold_max(const float (&v)[QMAX], int* out) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int k = 0; k < 2 * QMAX; ++k) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[k] = fmaxf(acc[k], __shfl_xor_sync(0xffffffffu, acc[k], off));
+  for (int q = 0; q < QMAX; ++q) {
+    const int k = __reduce_max_sync(0xffffffffu, fkey(v[q]));
+    if (lane == 0) atomicMax(&out[q], k);
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < 2 * QMAX; ++k) sh[wid][k] = acc[k];
-  }
-  __syncthreads();
-  float r = -INFINITY;
-  if (threadIdx.x < 2 * QMAX)
-    for (int w = 0; w < nw; ++w) r = fmaxf(r, sh[w][threadIdx.x]);
-  __syncthreads();
-  return r;
 }
 
 // Work-conserving carry floor at one slot (ref.carry_floor at the slot's own
@@ -141,205 +230,306 @@ __device__ __forceinline__ float carry_floor(int exact, float f, float last_ts, 
 }
 
 struct Params {
-  int n, banks, channels, exact;
+  int n, banks, channels, exact, k;
   float l2_svc, l2_lat, occ_rowhit, occ_rowmiss;
 };
 
-struct Carry {  // one pointer per QueueCarry field
+struct Ptrs {
+  const float* t_s;
+  const int *bank, *ch, *row;
+  const uint8_t *use_l2, *go_dram, *byp, *hp;
+  // the carry in, one pointer per QueueCarry field
   const float *bank_free, *bank_ts, *hp_free, *hp_ts, *hp_sa, *lp_free, *lp_ts, *lp_sa;
   const int* cur_row;
+  float *t_head, *t0;
+  uint8_t* row_hit;
+  // the carry out
+  float *o_bank_free, *o_bank_ts, *o_hp_free, *o_hp_ts, *o_hp_sa, *o_lp_free, *o_lp_ts,
+      *o_lp_sa;
+  int* o_cur_row;
 };
 
-struct CarryOut {
-  float *bank_free, *bank_ts, *hp_free, *hp_ts, *hp_sa, *lp_free, *lp_ts, *lp_sa;
-  int* cur_row;
-};
+// the carry fields the passes fold by max, in this order in s_out
+enum { BFREE, BTS, HFREE, HTS, HSA, LFREE, LTS, LSA, NFIELD };
 
-__global__ void __launch_bounds__(NT) wave_queue_kernel(
-    Params p, const float* __restrict__ t_s, const int* __restrict__ bank,
-    const uint8_t* __restrict__ use_l2, const int* __restrict__ ch, const int* __restrict__ row,
-    const uint8_t* __restrict__ go_dram, const uint8_t* __restrict__ byp,
-    const uint8_t* __restrict__ hp, Carry cin, float* t_head_out, float* t0_out,
-    uint8_t* row_hit_out, CarryOut cout) {
-  __shared__ float sh[32][QMAX];
-  __shared__ float sh2[32][2 * QMAX];
+__global__ void __launch_bounds__(kMaxThreads) wave_queue_kernel(Params p, Ptrs g) {
+  // dynamic shared memory: four [K][T + 1] arrays of the pass's slots, slot
+  // i of thread t at i * (T + 1) + t: D the packed word, TS t_s, ROW the row
+  // (B, after the row chain), A
+  extern __shared__ float smem[];
+  __shared__ ScanMem sm;
   // carried-in queue state, for per-slot lookups
   __shared__ float s_bfree[QMAX], s_bts[QMAX], s_hfree[QMAX], s_hts[QMAX], s_hsa[QMAX],
       s_lfree[QMAX], s_lts[QMAX], s_lsa[QMAX];
   __shared__ int s_row[QMAX];
-  // across-chunk scan carries, per queue
-  __shared__ float k_bsum[QMAX], k_bmax[QMAX], k_last[QMAX], k_hsum[QMAX], k_hmax[QMAX],
-      k_busy[QMAX], k_lsum[QMAX], k_lmax[QMAX];
+  // the scans' carries across passes
+  __shared__ float c1[2 * QMAX], c2[3 * QMAX], c3[QMAX], c4[QMAX], c5[QMAX];
+  __shared__ int s_out[NFIELD][QMAX];
 
-  const int tid = threadIdx.x;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank()), nb = static_cast<int>(cl.num_blocks());
+  const int tid = threadIdx.x, nt = blockDim.x, K = p.k, pitch = nt + 1;
+  int par = 0;  // the scans' parity
+  int* D = reinterpret_cast<int*>(smem);
+  float* TS = smem + K * pitch;
+  int* ROW = reinterpret_cast<int*>(TS + K * pitch);
+  float* B = TS + K * pitch;  // ROW's words once the row chain is done
+  float* A = B + K * pitch;
+
   if (tid < QMAX) {
     const bool b = tid < p.banks, c = tid < p.channels;
-    s_bfree[tid] = b ? cin.bank_free[tid] : 0.f;
-    s_bts[tid] = b ? cin.bank_ts[tid] : 0.f;
-    s_hfree[tid] = c ? cin.hp_free[tid] : 0.f;
-    s_hts[tid] = c ? cin.hp_ts[tid] : 0.f;
-    s_hsa[tid] = c ? cin.hp_sa[tid] : 0.f;
-    s_lfree[tid] = c ? cin.lp_free[tid] : 0.f;
-    s_lts[tid] = c ? cin.lp_ts[tid] : 0.f;
-    s_lsa[tid] = c ? cin.lp_sa[tid] : 0.f;
-    s_row[tid] = c ? cin.cur_row[tid] : -1;
-    k_bsum[tid] = 0.f;
-    k_bmax[tid] = -INFINITY;
-    k_last[tid] = -1.f;
-    k_hsum[tid] = 0.f;
-    k_hmax[tid] = -INFINITY;
-    k_busy[tid] = -INFINITY;
-    k_lsum[tid] = 0.f;
-    k_lmax[tid] = -INFINITY;
+    s_bfree[tid] = b ? g.bank_free[tid] : 0.f;
+    s_bts[tid] = b ? g.bank_ts[tid] : 0.f;
+    s_hfree[tid] = c ? g.hp_free[tid] : 0.f;
+    s_hts[tid] = c ? g.hp_ts[tid] : 0.f;
+    s_hsa[tid] = c ? g.hp_sa[tid] : 0.f;
+    s_lfree[tid] = c ? g.lp_free[tid] : 0.f;
+    s_lts[tid] = c ? g.lp_ts[tid] : 0.f;
+    s_lsa[tid] = c ? g.lp_sa[tid] : 0.f;
+    s_row[tid] = c ? g.cur_row[tid] : -1;
+    c1[tid] = 0.f;          // bank occupancy
+    c1[QMAX + tid] = -1.f;  // last DRAM slot of the channel (none)
+    c2[tid] = c2[QMAX + tid] = 0.f;  // HP, LP occupancy
+    c2[2 * QMAX + tid] = -INFINITY;  // bank running max
+    c3[tid] = c4[tid] = c5[tid] = -INFINITY;
+#pragma unroll
+    for (int f = 0; f < NFIELD; ++f) s_out[f][tid] = fkey(-INFINITY);
   }
   __syncthreads();
 
-  float x[QMAX], ex[QMAX];
-  for (int base = 0; base < p.n; base += NT) {
-    const int j = base + tid;
-    const bool in = j < p.n;
-    const float ts = in ? t_s[j] : 0.f;
-    const int qb = in ? bank[j] : 0;
-    const int qc = in ? ch[j] : 0;
-    const bool ul2 = in && use_l2[j];
-    const bool gd = in && go_dram[j];
-    const bool hpj = in && hp[j];
-    const bool bypj = in && byp[j];
+  const float svc = p.l2_svc, lat = p.l2_lat;
+  for (int pass = 0; pass < p.n; pass += nb * K * nt) {
+    const int base = pass + rank * K * nt;      // this block's first slot
+    const int per = max(0, min(K * nt, p.n - base));  // its slots of this pass
+    const int first = base + tid * K;           // this thread's first slot
+    const int kn = max(0, min(K, p.n - first));
 
-    // ---- L2 bank queues ---------------------------------------------------
-    const float cb = k_bsum[qb], mb = k_bmax[qb];
-#pragma unroll
-    for (int q = 0; q < QMAX; ++q) x[q] = (ul2 && q == qb) ? p.l2_svc : 0.f;
-    const float t_bs = block_scan(x, ex, 0.f, Add(), sh);
-    const float c_b = cb + pick(ex, qb);
-    const float f_b = carry_floor(p.exact, s_bfree[qb], s_bts[qb], s_bts[qb], ts, ts);
-    const float v_b = ul2 ? fmaxf(ts, f_b) - c_b : -INFINITY;
-#pragma unroll
-    for (int q = 0; q < QMAX; ++q) x[q] = (q == qb) ? v_b : -INFINITY;
-    const float t_bm = block_scan(x, ex, -INFINITY, Max(), sh);
-    const float b_start = c_b + fmaxf(mb, pick(x, qb));
-    const float t_head = ul2 ? 0.f + b_start : 0.f;
-
-    // ---- DRAM row-buffer chain: previous go-to-DRAM slot of the channel ----
-    const float t_da = bypj ? ts : t_head + p.l2_lat;
-    const float last = k_last[qc];
-#pragma unroll
-    for (int q = 0; q < QMAX; ++q) x[q] = (gd && q == qc) ? (float)j : -1.f;
-    const float t_rw = block_scan(x, ex, -1.f, Max(), sh);
-    const int prev = (int)fmaxf(last, pick(ex, qc));
-    const int prev_row = prev >= 0 ? row[prev] : s_row[qc];
-    const int rowj = in ? row[j] : 0;
-    const bool rh = gd && prev_row == rowj;
-    const float occ = rh ? p.occ_rowhit : p.occ_rowmiss;
-
-    // ---- high-priority queue ----------------------------------------------
-    const bool mhp = gd && hpj;
-    const float ch_ = k_hsum[qc], mh = k_hmax[qc], busy0 = k_busy[qc];
-#pragma unroll
-    for (int q = 0; q < QMAX; ++q) x[q] = (mhp && q == qc) ? occ : 0.f;
-    const float t_hs = block_scan(x, ex, 0.f, Add(), sh);
-    const float c_h = ch_ + pick(ex, qc);
-    const float f_hp = carry_floor(p.exact, s_hfree[qc], s_hts[qc], s_hsa[qc], ts, t_da);
-    const float v_h = mhp ? fmaxf(t_da, f_hp) - c_h : -INFINITY;
-#pragma unroll
-    for (int q = 0; q < QMAX; ++q) x[q] = (q == qc) ? v_h : -INFINITY;
-    const float t_hm = block_scan(x, ex, -INFINITY, Max(), sh);
-    const float hp_start = c_h + fmaxf(mh, pick(x, qc));
-    const float hp_end = mhp ? hp_start + occ : -INFINITY;
-
-    // strict priority: the HP busy horizon before this slot, per channel
-#pragma unroll
-    for (int q = 0; q < QMAX; ++q) x[q] = (q == qc) ? hp_end : -INFINITY;
-    const float t_bz = block_scan(x, ex, -INFINITY, Max(), sh);
-    const float hp_busy = fmaxf(busy0, pick(ex, qc));
-
-    // ---- low-priority queue -----------------------------------------------
-    const bool mlp = gd && !hpj;
-    const float cl = k_lsum[qc], ml = k_lmax[qc];
-    const float f_lp = carry_floor(p.exact, s_lfree[qc], s_lts[qc], s_lsa[qc], ts, t_da);
-    const float lp_floor = fmaxf(f_lp, fmaxf(f_hp, hp_busy));
-#pragma unroll
-    for (int q = 0; q < QMAX; ++q) x[q] = (mlp && q == qc) ? occ : 0.f;
-    const float t_ls = block_scan(x, ex, 0.f, Add(), sh);
-    const float c_l = cl + pick(ex, qc);
-    const float v_l = mlp ? fmaxf(t_da, lp_floor) - c_l : -INFINITY;
-#pragma unroll
-    for (int q = 0; q < QMAX; ++q) x[q] = (q == qc) ? v_l : -INFINITY;
-    const float t_lm = block_scan(x, ex, -INFINITY, Max(), sh);
-    const float lp_start = c_l + fmaxf(ml, pick(x, qc));
-
-    if (in) {
-      t_head_out[j] = t_head;
-      t0_out[j] = hpj ? hp_start : lp_start;
-      row_hit_out[j] = rh ? 1 : 0;
-    }
-    // advance the across-chunk carries (every thread read them above,
-    // before the scans' barriers)
-    if (tid < QMAX) {
-      k_bsum[tid] += t_bs;
-      k_bmax[tid] = fmaxf(k_bmax[tid], t_bm);
-      k_last[tid] = fmaxf(k_last[tid], t_rw);
-      k_hsum[tid] += t_hs;
-      k_hmax[tid] = fmaxf(k_hmax[tid], t_hm);
-      k_busy[tid] = fmaxf(k_busy[tid], t_bz);
-      k_lsum[tid] += t_ls;
-      k_lmax[tid] = fmaxf(k_lmax[tid], t_lm);
+    // ---- P0: the pass's slots into shared memory, coalesced; then bank
+    // occupancy and the row chain's partials -----------------------------
+    __syncthreads();  // the previous pass is done with the arrays
+    for (int l = tid; l < per; l += nt) {
+      const int j = base + l, t = l / K, s = (l - t * K) * pitch + t;
+      D[s] = g.bank[j] | (g.ch[j] << 4) | (g.use_l2[j] ? kUl2 : 0) |
+             (g.go_dram[j] ? kGd : 0) | (g.hp[j] ? kHp : 0) | (g.byp[j] ? kByp : 0);
+      TS[s] = g.t_s[j];
+      ROW[s] = g.row[j];
     }
     __syncthreads();
-  }
-
-  // ---- fused carry advance: per-queue max reductions over the wave -------
-  // Each thread re-reads only the slots it wrote itself.
-  float acc[2 * QMAX];
-  for (int pass = 0; pass < 4; ++pass) {
+    float x1[2 * QMAX];
 #pragma unroll
-    for (int k = 0; k < 2 * QMAX; ++k) acc[k] = -INFINITY;
-    for (int j = tid; j < p.n; j += NT) {
-      const bool ul2 = use_l2[j], gd = go_dram[j], hpj = hp[j];
-      const float ts = t_s[j], th = t_head_out[j];
-      const float t_da = byp[j] ? ts : th + p.l2_lat;
-      const float end = t0_out[j] + (row_hit_out[j] ? p.occ_rowhit : p.occ_rowmiss);
-      const int qb = bank[j], qc = ch[j];
-      float a = -INFINITY, b = -INFINITY;
-      int qa = -1;
-      if (pass == 0 && ul2) { qa = qb; a = th + p.l2_svc; b = ts; }
-      if (pass == 1 && gd && hpj) { qa = qc; a = end; b = ts; }
-      if (pass == 2 && gd) { qa = qc; a = hpj ? t_da : -INFINITY; b = hpj ? -INFINITY : end; }
-      if (pass == 3 && gd && !hpj) { qa = qc; a = ts; b = t_da; }
+    for (int q = 0; q < QMAX; ++q) x1[q] = 0.f, x1[QMAX + q] = -1.f;
+    for (int i = 0; i < kn; ++i) {
+      const int d = D[i * pitch + tid];
+      const int qb = d & 15, qc = (d >> 4) & 15;
 #pragma unroll
       for (int q = 0; q < QMAX; ++q) {
-        if (q == qa) {
-          acc[q] = fmaxf(acc[q], a);
-          acc[QMAX + q] = fmaxf(acc[QMAX + q], b);
+        if ((d & kUl2) && q == qb) x1[q] = x1[q] + svc;
+        if ((d & kGd) && q == qc) x1[QMAX + q] = (float)(first + i);
+      }
+    }
+    block_scan<QMAX>(x1, c1, sm, par, cl);
+
+    // ---- P1: bank occupancy prefix, row hits; bank v, HP / LP occupancy ---
+    {
+      float cbs[QMAX], last[QMAX], x2[3 * QMAX];
+#pragma unroll
+      for (int q = 0; q < QMAX; ++q) {
+        cbs[q] = x1[q];
+        last[q] = x1[QMAX + q];
+        x2[q] = x2[QMAX + q] = 0.f;
+        x2[2 * QMAX + q] = -INFINITY;
+      }
+      for (int i = 0; i < kn; ++i) {
+        const int j = first + i, s = i * pitch + tid;
+        int d = D[s];
+        const int qb = d & 15, qc = (d >> 4) & 15;
+        const bool ul2 = d & kUl2, gd = d & kGd, hpj = d & kHp;
+        const float ts = TS[s];
+        const float c_b = pick(cbs, qb);
+        if (ul2) add_at(cbs, qb, svc);
+        const int prev = (int)pick(last, qc);
+        if (gd) put(last, qc, (float)j);
+        // the previous DRAM slot of the channel: in this pass (shared
+        // memory), in an earlier one (global), or none (the carried row)
+        int prev_row = s_row[qc];
+        if (prev >= base) {
+          const int l = prev - base, t = l / K;
+          prev_row = ROW[(l - t * K) * pitch + t];
+        } else if (prev >= 0) {
+          prev_row = __ldg(g.row + prev);
+        }
+        const bool rh = gd && prev_row == ROW[s];
+        g.row_hit[j] = rh ? 1 : 0;
+        if (rh) D[s] = d | kRh;
+        const float occ = rh ? p.occ_rowhit : p.occ_rowmiss;
+        const float f_b = carry_floor(p.exact, s_bfree[qb], s_bts[qb], s_bts[qb], ts, ts);
+        const float v_b = ul2 ? fmaxf(ts, f_b) - c_b : -INFINITY;
+        A[s] = c_b;
+#pragma unroll
+        for (int q = 0; q < QMAX; ++q) {
+          if (gd && hpj && q == qc) x2[q] = x2[q] + occ;
+          if (gd && !hpj && q == qc) x2[QMAX + q] = x2[QMAX + q] + occ;
+          if (q == qb) x2[2 * QMAX + q] = fmaxf(x2[2 * QMAX + q], v_b);
         }
       }
-    }
-    const float r = block_max2(acc, sh2);
-    if (tid < 2 * QMAX) {
-      const int q = tid % QMAX;
-      const bool second = tid >= QMAX;
-      if (pass == 0 && q < p.banks) {
-        if (!second) cout.bank_free[q] = fmaxf(s_bfree[q], r);
-        else cout.bank_ts[q] = fmaxf(s_bts[q], r);
+      block_scan<2 * QMAX>(x2, c2, sm, par, cl);
+
+      // ---- P2: bank starts, t_head, t_da; HP / LP prefixes; HP v --------
+      float hs[QMAX], ls[QMAX], bm[QMAX], x3[QMAX], bfree[QMAX], bts[QMAX];
+#pragma unroll
+      for (int q = 0; q < QMAX; ++q) {
+        hs[q] = x2[q];
+        ls[q] = x2[QMAX + q];
+        bm[q] = x2[2 * QMAX + q];
       }
-      if (pass == 1 && q < p.channels) {
-        if (!second) cout.hp_free[q] = fmaxf(s_hfree[q], r);
-        else cout.hp_ts[q] = fmaxf(s_hts[q], r);
+      fill(x3, -INFINITY);
+      fill(bfree, -INFINITY);
+      fill(bts, -INFINITY);
+      for (int i = 0; i < kn; ++i) {
+        const int j = first + i, s = i * pitch + tid;
+        const int d = D[s];
+        const int qb = d & 15, qc = (d >> 4) & 15;
+        const bool ul2 = d & kUl2, gd = d & kGd, hpj = d & kHp;
+        const float ts = TS[s];
+        const float c_b = A[s];
+        const float f_b = carry_floor(p.exact, s_bfree[qb], s_bts[qb], s_bts[qb], ts, ts);
+        const float v_b = ul2 ? fmaxf(ts, f_b) - c_b : -INFINITY;
+        const float mb = fmaxf(pick(bm, qb), v_b);
+        put(bm, qb, mb);
+        const float t_head = ul2 ? 0.f + (c_b + mb) : 0.f;
+        g.t_head[j] = t_head;
+        const float t_da = (d & kByp) ? ts : t_head + lat;
+        A[s] = t_da;
+        const float occ = (d & kRh) ? p.occ_rowhit : p.occ_rowmiss;
+        const float c_h = pick(hs, qc), c_l = pick(ls, qc);
+        if (gd && hpj) add_at(hs, qc, occ);
+        if (gd && !hpj) add_at(ls, qc, occ);
+        B[s] = hpj ? c_h : c_l;
+        const float f_hp = carry_floor(p.exact, s_hfree[qc], s_hts[qc], s_hsa[qc], ts, t_da);
+        const float v_h = (gd && hpj) ? fmaxf(t_da, f_hp) - c_h : -INFINITY;
+        max_at(x3, qc, v_h);
+        if (ul2) {
+          max_at(bfree, qb, t_head + svc);
+          max_at(bts, qb, ts);
+        }
       }
-      if (pass == 2 && q < p.channels) {
-        if (!second) cout.hp_sa[q] = fmaxf(s_hsa[q], r);
-        else cout.lp_free[q] = fmaxf(s_lfree[q], r);
+      fold_max(bfree, s_out[BFREE]);
+      fold_max(bts, s_out[BTS]);
+      block_scan<0>(x3, c3, sm, par, cl);
+
+      // ---- P3: HP starts and ends ----------------------------------------
+      float x4[QMAX], hfree[QMAX], hts[QMAX], hsa[QMAX];
+      fill(x4, -INFINITY);
+      fill(hfree, -INFINITY);
+      fill(hts, -INFINITY);
+      fill(hsa, -INFINITY);
+      for (int i = 0; i < kn; ++i) {
+        const int j = first + i, s = i * pitch + tid;
+        const int d = D[s];
+        if (!(d & kHp)) continue;
+        const int qc = (d >> 4) & 15;
+        const bool mhp = d & kGd;
+        const float ts = TS[s], t_da = A[s], c_h = B[s];
+        const float f_hp = carry_floor(p.exact, s_hfree[qc], s_hts[qc], s_hsa[qc], ts, t_da);
+        const float v_h = mhp ? fmaxf(t_da, f_hp) - c_h : -INFINITY;
+        const float mh = fmaxf(pick(x3, qc), v_h);
+        put(x3, qc, mh);
+        const float hp_start = c_h + mh;
+        g.t0[j] = hp_start;
+        const float occ = (d & kRh) ? p.occ_rowhit : p.occ_rowmiss;
+        const float hp_end = mhp ? hp_start + occ : -INFINITY;
+        B[s] = hp_end;
+        max_at(x4, qc, hp_end);
+        if (mhp) {
+          max_at(hfree, qc, hp_end);
+          max_at(hts, qc, ts);
+          max_at(hsa, qc, t_da);
+        }
       }
-      if (pass == 3 && q < p.channels) {
-        if (!second) cout.lp_ts[q] = fmaxf(s_lts[q], r);
-        else cout.lp_sa[q] = fmaxf(s_lsa[q], r);
+      fold_max(hfree, s_out[HFREE]);
+      fold_max(hts, s_out[HTS]);
+      fold_max(hsa, s_out[HSA]);
+      block_scan<0>(x4, c4, sm, par, cl);
+
+      // ---- P4: strict priority: LP floors over the HP busy horizon; LP v --
+      float x5[QMAX], lts[QMAX], lsa[QMAX];
+      fill(x5, -INFINITY);
+      fill(lts, -INFINITY);
+      fill(lsa, -INFINITY);
+      for (int i = 0; i < kn; ++i) {
+        const int j = first + i, s = i * pitch + tid;
+        const int d = D[s];
+        const int qc = (d >> 4) & 15;
+        if (d & kHp) {  // this slot's HP end joins the horizon of later slots
+          max_at(x4, qc, B[s]);
+          continue;
+        }
+        const bool mlp = d & kGd;
+        const float hp_busy = pick(x4, qc);
+        const float ts = TS[s], t_da = A[s], c_l = B[s];
+        const float f_hp = carry_floor(p.exact, s_hfree[qc], s_hts[qc], s_hsa[qc], ts, t_da);
+        const float f_lp = carry_floor(p.exact, s_lfree[qc], s_lts[qc], s_lsa[qc], ts, t_da);
+        const float lp_floor = fmaxf(f_lp, fmaxf(f_hp, hp_busy));
+        const float v_l = mlp ? fmaxf(t_da, lp_floor) - c_l : -INFINITY;
+        A[s] = v_l;
+        max_at(x5, qc, v_l);
+        if (mlp) {
+          max_at(lts, qc, ts);
+          max_at(lsa, qc, t_da);
+        }
       }
+      fold_max(lts, s_out[LTS]);
+      fold_max(lsa, s_out[LSA]);
+      block_scan<0>(x5, c5, sm, par, cl);
+
+      // ---- P5: LP starts and ends ----------------------------------------
+      float lfree[QMAX];
+      fill(lfree, -INFINITY);
+      for (int i = 0; i < kn; ++i) {
+        const int j = first + i, s = i * pitch + tid;
+        const int d = D[s];
+        if (d & kHp) continue;
+        const int qc = (d >> 4) & 15;
+        const float v_l = A[s], c_l = B[s];
+        const float ml = fmaxf(pick(x5, qc), v_l);
+        put(x5, qc, ml);
+        const float lp_start = c_l + ml;
+        g.t0[j] = lp_start;
+        if (d & kGd) max_at(lfree, qc, lp_start + ((d & kRh) ? p.occ_rowhit : p.occ_rowmiss));
+      }
+      fold_max(lfree, s_out[LFREE]);
     }
   }
-  if (tid < p.channels) {
-    const int last = (int)k_last[tid];
-    cout.cur_row[tid] = last >= 0 ? row[last] : s_row[tid];
+
+  // ---- the carry out: the blocks' folded maxima over the carried-in values,
+  // by block 0 ---------------------------------------------------------------
+  cl.sync();  // every block's maxima are in
+  if (rank == 0 && tid < QMAX) {
+    float r[NFIELD];
+#pragma unroll
+    for (int f = 0; f < NFIELD; ++f) {
+      int k = fkey(-INFINITY);
+#pragma unroll
+      for (int b = 0; b < kMaxBlocks; ++b)
+        if (b < nb) k = max(k, cl.map_shared_rank(&s_out[f][0], b)[tid]);
+      r[f] = funkey(k);
+    }
+    if (tid < p.banks) {
+      g.o_bank_free[tid] = fmaxf(s_bfree[tid], r[BFREE]);
+      g.o_bank_ts[tid] = fmaxf(s_bts[tid], r[BTS]);
+    }
+    if (tid < p.channels) {
+      g.o_hp_free[tid] = fmaxf(s_hfree[tid], r[HFREE]);
+      g.o_hp_ts[tid] = fmaxf(s_hts[tid], r[HTS]);
+      g.o_hp_sa[tid] = fmaxf(s_hsa[tid], r[HSA]);
+      g.o_lp_free[tid] = fmaxf(s_lfree[tid], r[LFREE]);
+      g.o_lp_ts[tid] = fmaxf(s_lts[tid], r[LTS]);
+      g.o_lp_sa[tid] = fmaxf(s_lsa[tid], r[LSA]);
+      const int last = (int)c1[QMAX + tid];
+      g.o_cur_row[tid] = last >= 0 ? g.row[last] : s_row[tid];
+    }
   }
+  cl.sync();  // block 0 is done with the others' shared memory
 }
 
 }  // namespace
@@ -350,32 +540,76 @@ const char* wave_queue_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launch one wave's timing pass on `stream`. Every pointer is a contiguous
-// device buffer: slots [n] (bool as one byte), carry fields [banks] or
-// [channels]. Returns the cudaError_t of the launch.
-int wave_queue_launch(int n, int banks, int channels, int exact, float l2_svc, float l2_lat,
-                      float occ_rowhit, float occ_rowmiss, const void* t_s, const void* bank,
-                      const void* use_l2, const void* ch, const void* row, const void* go_dram,
-                      const void* byp, const void* hp, const void* bank_free,
-                      const void* bank_ts, const void* hp_free, const void* hp_ts,
-                      const void* hp_sa, const void* lp_free, const void* lp_ts,
-                      const void* lp_sa, const void* cur_row, void* t_head, void* t0,
-                      void* row_hit, void* o_bank_free, void* o_bank_ts, void* o_hp_free,
-                      void* o_hp_ts, void* o_hp_sa, void* o_lp_free, void* o_lp_ts,
-                      void* o_lp_sa, void* o_cur_row, void* stream) {
-  if (banks > QMAX || channels > QMAX || banks < 1 || channels < 1)
+// Launch one wave's timing pass. `args` (host) is one int64 array:
+//   [0..7]   n, banks, channels, exact, blocks (of the cluster), threads, k
+//            (slots a thread), smem_bytes — the host's plan
+//            (plan_wave_queue in kernels/wavefront_scan/ops.py), launched
+//            as it is;
+//   [8..11]  the float32 bit patterns of l2_svc, l2_lat, occ_rowhit,
+//            occ_rowmiss;
+//   [12..40] device pointers, each a contiguous buffer (bool as one byte):
+//            the slots [n] t_s, bank, ch, row, use_l2, go_dram, byp, hp; the
+//            carry in bank_free, bank_ts [banks], hp_free, hp_ts, hp_sa,
+//            lp_free, lp_ts, lp_sa, cur_row [channels]; the outputs t_head,
+//            t0, row_hit [n]; the carry out, as the carry in;
+//   [41]     the CUDA stream.
+// Returns the cudaError_t of the launch; cudaErrorInvalidValue for a plan
+// outside the kernel (1..8 banks and channels, a cluster of 1..8 blocks of
+// 32..512 threads in whole warps, 1..16 slots a thread, shared memory for
+// the plan's slots: 16 * k * (threads + 1) bytes).
+int wave_queue_launch(const void* args) {
+  const int64_t* a = static_cast<const int64_t*>(args);
+  auto f32 = [](int64_t bits) {
+    const int32_t b = static_cast<int32_t>(bits);
+    float f;
+    memcpy(&f, &b, sizeof f);
+    return f;
+  };
+  const Params p{static_cast<int>(a[0]), static_cast<int>(a[1]), static_cast<int>(a[2]),
+                 static_cast<int>(a[3]), static_cast<int>(a[6]), f32(a[8]),
+                 f32(a[9]), f32(a[10]), f32(a[11])};
+  const int blocks = static_cast<int>(a[4]), threads = static_cast<int>(a[5]);
+  const int64_t smem = a[7];
+  if (p.n < 0 || p.banks > QMAX || p.channels > QMAX || p.banks < 1 || p.channels < 1 ||
+      blocks < 1 || blocks > kMaxBlocks || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || p.k < 1 || p.k > kMaxK || smem < 16LL * p.k * (threads + 1) ||
+      smem > 232448 - 4096)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{n, banks, channels, exact, l2_svc, l2_lat, occ_rowhit, occ_rowmiss};
-  Carry cin{(const float*)bank_free, (const float*)bank_ts, (const float*)hp_free,
-            (const float*)hp_ts,     (const float*)hp_sa,   (const float*)lp_free,
-            (const float*)lp_ts,     (const float*)lp_sa,   (const int*)cur_row};
-  CarryOut cout{(float*)o_bank_free, (float*)o_bank_ts, (float*)o_hp_free,
-                (float*)o_hp_ts,     (float*)o_hp_sa,   (float*)o_lp_free,
-                (float*)o_lp_ts,     (float*)o_lp_sa,   (int*)o_cur_row};
-  wave_queue_kernel<<<1, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, (const float*)t_s, (const int*)bank, (const uint8_t*)use_l2, (const int*)ch,
-      (const int*)row, (const uint8_t*)go_dram, (const uint8_t*)byp, (const uint8_t*)hp, cin,
-      (float*)t_head, (float*)t0, (uint8_t*)row_hit, cout);
+  const void* const* q = reinterpret_cast<const void* const*>(a + 12);
+  const Ptrs g{(const float*)q[0],   (const int*)q[1],      (const int*)q[2],
+               (const int*)q[3],     (const uint8_t*)q[4],  (const uint8_t*)q[5],
+               (const uint8_t*)q[6], (const uint8_t*)q[7],  (const float*)q[8],
+               (const float*)q[9],   (const float*)q[10],   (const float*)q[11],
+               (const float*)q[12],  (const float*)q[13],   (const float*)q[14],
+               (const float*)q[15],  (const int*)q[16],     (float*)q[17],
+               (float*)q[18],        (uint8_t*)q[19],       (float*)q[20],
+               (float*)q[21],        (float*)q[22],         (float*)q[23],
+               (float*)q[24],        (float*)q[25],         (float*)q[26],
+               (float*)q[27],        (int*)q[28]};
+  static int64_t allowed[kMaxDevices] = {};  // the opt-in set so far, per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > allowed[dev])) {
+    e = cudaFuncSetAttribute(wave_queue_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < kMaxDevices) allowed[dev] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = reinterpret_cast<cudaStream_t>(a[41]);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = blocks;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, wave_queue_kernel, p, g);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

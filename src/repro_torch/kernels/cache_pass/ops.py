@@ -42,8 +42,10 @@ BOOL = torch.bool
 
 BACKENDS = _build.BACKENDS
 
-#: widest wave the kernel takes (8 slots per thread of a 1024-thread block)
-KERNEL_MAX_B = 8192
+#: widest wave the kernel takes (16 slots per thread of a 1024-thread
+#: block): the default wave of the reference's widest trace, WIDE64K
+#: (65,536 warps, waves of W/4)
+KERNEL_MAX_B = 16384
 #: dynamic shared memory one block may have on an H100 (232,448 bytes,
 #: the opt-in maximum per block) less 1 KB kept for the kernel's static
 #: shared variables
@@ -109,9 +111,10 @@ def plan_wave_cache(prm: SimParams, b: int, resident=None) -> WaveCachePlan:
         raise ValueError(f"wave_cache: the state of {prm} does not fit in "
                          "shared memory")
     # 1, 2 or 4 slots a thread on up to 512 threads (128 registers each),
-    # else 8 on 1024 (64 registers)
+    # else 8 or 16 on 1024 (64 registers; at 16 the slots' registers spill)
     mid = -(-b // 512)
-    spt = 1 if mid == 1 else 2 if mid == 2 else 4 if mid <= 4 else 8
+    spt = 1 if mid == 1 else 2 if mid == 2 else 4 if mid <= 4 \
+        else 8 if mid <= 16 else 16
     threads = -(-b // 32) * 32 if spt == 1 else 512 if spt < 8 else 1024
     return WaveCachePlan(bool(resident),
                          tables + state if resident else tables, threads, spt)

@@ -9,7 +9,9 @@ last position). Backends:
   * ``"ref"``  — the plain PyTorch version (``ref.mlstm_chunkwise_ref``),
     on any device.
   * ``"cuda"`` — the hand-written Hopper kernel ``csrc/mlstm.cu`` (chunks
-    of 64, any S, one launch). CUDA tensors only; raises otherwise.
+    of 64, any S; one call launches its two kernels, the chunk terms and
+    the state recurrence, on the tensor cores). CUDA tensors only; raises
+    otherwise.
   * ``"auto"`` — the kernel for CUDA tensors, the plain version for CPU
     tensors.
 """
@@ -30,14 +32,23 @@ BACKENDS = _build.BACKENDS
 KERNEL_MAX_DK = 256
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-MLSTM = Kernel("mlstm", [_I] * 6 + [_F] + [_V] * 13)
+MLSTM = Kernel("mlstm", [_I] * 6 + [_F] + [_V] * 14)
 
 F32 = torch.float32
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+def scratch_floats(b: int, s: int, h: int) -> int:
+    """float32 elements of the kernel's scratch: per (batch, head, chunk)
+    the weights [64, 64], four rows of 64 (exp(g - m_loc), the weights' row
+    sums, exp(-m_loc), sc) and the decay (csrc/mlstm.cu: mlstm_launch)."""
+    chunk = _ref.CHUNK
+    return b * h * -(-s // chunk) * (chunk * chunk + 4 * chunk + 1)
+
+
 def mlstm_cuda(q, k, v, li, lf, state=None):
-    """The Hopper kernel: (h, (C, n, m)) from one launch."""
+    """The Hopper kernel: (h, (C, n, m)) from one launch call. The outputs
+    and the scratch are views of one allocation."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("mlstm_cuda needs CUDA tensors")
@@ -62,12 +73,17 @@ def mlstm_cuda(q, k, v, li, lf, state=None):
     check("C", c0, F32, (b, h, dk, dv))
     check("n", n0, F32, (b, h, dk))
     check("m", m0, F32, (b, h))
-    out = torch.empty((b, s, h, dv), dtype=F32, device=dev)
-    c1, n1, m1 = (torch.empty_like(x) for x in (c0, n0, m0))
+    # the scratch first: its float4 loads want a 16-byte start
+    sizes = [scratch_floats(b, s, h), b * s * h * dv, c0.numel(), n0.numel(),
+             m0.numel()]
+    scratch, out, c1, n1, m1 = torch.empty(
+        sum(sizes), dtype=F32, device=dev).split_with_sizes(sizes)
+    out, c1, n1, m1 = (x.view(shape) for x, shape in (
+        (out, (b, s, h, dv)), (c1, c0.shape), (n1, n0.shape), (m1, m0.shape)))
     MLSTM.launch(b, s, h, dk, dv, int(q.dtype == torch.bfloat16),
                  1.0 / math.sqrt(dk), ptr(q), ptr(k), ptr(v), ptr(li),
                  ptr(lf), ptr(c0), ptr(n0), ptr(m0), ptr(out), ptr(c1),
-                 ptr(n1), ptr(m1), stream_of(q))
+                 ptr(n1), ptr(m1), ptr(scratch), stream_of(q))
     return out, (c1, n1, m1)
 
 

@@ -1,8 +1,9 @@
-"""What the port decides on the host around two of its kernels, checked on
-the CPU: the cache pass's instance plan (shared-memory bytes, resident or
+"""What the port decides on the host around its kernels, checked on the
+CPU: the cache pass's instance plan (shared-memory bytes, resident or
 global state, the wave limits) and the packed layouts of its outputs; the
-pool gather's several-pool form against the JAX reference; the serving
-engine's offload table built on the device. The kernels themselves are
+timing pass's plan (slots a thread, threads, block passes) and its packed
+call; the pool gather's several-pool form against the JAX reference; the
+serving engine's offload table built on the device. The kernels themselves are
 held against these on the card (``tests/test_torch_kernels_cuda.py``,
 ``chip_smoke.py``)."""
 import re
@@ -20,6 +21,8 @@ from repro_torch.core import baselines as BL
 from repro_torch.core.engine.state import SimParams
 from repro_torch.kernels.cache_pass import ops as CPASS
 from repro_torch.kernels.medic_gather import ops as GATHER
+from repro_torch.kernels.wavefront_scan import ops as WSCAN
+from repro_torch.kernels.wavefront_scan.ref import QueueCarry
 from repro_torch.serving import engine as ENG
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -71,17 +74,30 @@ def test_plan_refuses_pointer_tables_over_shared_memory():
 @pytest.mark.parametrize("b,threads,spt", [
     (1, 32, 1), (33, 64, 1), (512, 512, 1), (513, 512, 2), (1024, 512, 2),
     (1025, 512, 4), (2048, 512, 4), (2049, 1024, 8), (3000, 1024, 8),
-    (8192, 1024, 8)])
+    (8192, 1024, 8), (8193, 1024, 16), (12000, 1024, 16),
+    (16384, 1024, 16)])
 def test_plan_threads_and_slots_per_thread(b, threads, spt):
     plan = CPASS.plan_wave_cache(SimParams(), b)
     assert (plan.threads, plan.slots_per_thread) == (threads, spt)
     assert plan.threads * plan.slots_per_thread >= b
 
 
-@pytest.mark.parametrize("b", [0, -1, CPASS.KERNEL_MAX_B + 1])
+@pytest.mark.parametrize("b", [0, -1, CPASS.KERNEL_MAX_B + 1, 16385])
 def test_plan_refuses_waves_outside_the_kernel(b):
     with pytest.raises(ValueError, match="slots per wave"):
         CPASS.plan_wave_cache(SimParams(), b)
+
+
+@pytest.mark.parametrize("n_warps", [65536, 16384 * 4 + 3])
+def test_plan_takes_the_widest_traces_default_wave(n_warps):
+    """WIDE64K (65,536 warps) runs at the default wave of W/4 = 16,384
+    slots: the plan covers it, in both instances."""
+    from repro_torch.core.engine import wavefront as WF
+    b = WF.default_wave_size(n_warps)
+    assert b == n_warps // 4 and b <= CPASS.KERNEL_MAX_B == 16384
+    for resident in (None, False):
+        plan = CPASS.plan_wave_cache(SimParams(), b, resident=resident)
+        assert (plan.threads, plan.slots_per_thread) == (1024, 16)
 
 
 def test_plan_gives_the_global_instance_on_request():
@@ -102,18 +118,144 @@ def _c_const(name: str) -> int:
 
 
 @pytest.mark.parametrize("b", [1, 31, 32, 500, 512, 513, 1500, 2048, 2049,
-                               4097, 8192])
+                               4097, 8192, 8193, 16383, 16384])
 def test_plan_is_inside_the_c_entrys_bounds(b):
     """The C entry launches the plan as it is and refuses one outside its
     instances: threads a multiple of 32, up to kMidThreads for 1, 2 or 4
-    slots a thread and kMaxThreads for 8, covering the wave."""
+    slots a thread and kMaxThreads for 8 or 16, covering the wave."""
     mid, most = _c_const("kMidThreads"), _c_const("kMaxThreads")
+    src = (ROOT / "src/repro_torch/csrc/wave_cache.cu").read_text()
+    instances = {int(x) for x in re.findall(r"if \(spt == (\d+)\) return "
+                                            r"launch_ways<", src)}
+    assert instances == {1, 2, 4, 8, 16}
+    assert "spt >= 8 ? kMaxThreads : kMidThreads" in src
     for resident in (None, False):
         plan = CPASS.plan_wave_cache(SimParams(), b, resident=resident)
-        assert plan.slots_per_thread in (1, 2, 4, 8)
-        cap = most if plan.slots_per_thread == 8 else mid
+        assert plan.slots_per_thread in instances
+        cap = most if plan.slots_per_thread >= 8 else mid
         assert 32 <= plan.threads <= cap and plan.threads % 32 == 0
         assert plan.threads * plan.slots_per_thread >= b
+
+
+# ---------------------------------------------------------------------------
+# the timing pass's plan and packed call
+# ---------------------------------------------------------------------------
+
+def _wq_const(name: str) -> int:
+    src = (ROOT / "src/repro_torch/csrc/wave_queue.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("n,blocks,threads,k,passes", [
+    (0, 1, 32, 1, 1), (1, 1, 32, 1, 1), (17, 1, 32, 1, 1), (33, 1, 64, 1, 1),
+    (600, 1, 224, 3, 1), (1024, 1, 256, 4, 1), (1025, 2, 192, 3, 1),
+    (8192, 8, 256, 4, 1), (8193, 8, 224, 5, 1), (16384, 8, 256, 8, 1),
+    (40000, 8, 320, 16, 1), (65536, 8, 512, 16, 1), (65537, 8, 512, 16, 2),
+    (262144, 8, 512, 16, 4)])
+def test_wave_queue_plan(n, blocks, threads, k, passes):
+    """One block of the cluster per 1024 slots (at most 8), then K =
+    ceil(slots a block / 256) slots a thread (at most 16) on as few warps
+    as cover them: HAMMER2K's wave of 8192 on 8 blocks of 256 threads of 4
+    slots, HAMMER4K's 16,384 at 8 a thread; passes of 65,536 above
+    (WIDE64K's 262,144 in 4)."""
+    plan = WSCAN.plan_wave_queue(n)
+    assert (plan.blocks, plan.threads, plan.slots_per_thread,
+            plan.passes) == (blocks, threads, k, passes)
+    assert plan.smem_bytes == 16 * k * (threads + 1)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 511, 513, 1000, 1025, 4097,
+                               8191, 8192, 16383, 16384, 16385, 50000,
+                               65536, 65537, 262144, 1 << 20])
+def test_wave_queue_plan_is_inside_the_c_entrys_bounds(n):
+    """The C entry launches the plan as it is and refuses one outside the
+    kernel: a cluster of 1..kMaxBlocks blocks of whole warps up to
+    kMaxThreads, 1..kMaxK slots a thread, four words of shared memory a
+    slot of a pass (rows of threads + 1), under the card's 227 KB; the
+    passes cover the wave, and only the last is partial."""
+    plan = WSCAN.plan_wave_queue(n)
+    most, kmax = _wq_const("kMaxThreads"), _wq_const("kMaxK")
+    assert (_wq_const("kMaxBlocks"), most, kmax) == (
+        WSCAN.MAX_BLOCKS, WSCAN.MAX_THREADS, WSCAN.MAX_SLOTS_PER_THREAD)
+    assert 1 <= plan.blocks <= WSCAN.MAX_BLOCKS
+    assert 32 <= plan.threads <= most and plan.threads % 32 == 0
+    assert 1 <= plan.slots_per_thread <= kmax
+    per_pass = plan.blocks * plan.threads * plan.slots_per_thread
+    assert plan.passes * per_pass >= n > (plan.passes - 1) * per_pass \
+        or n == 0
+    assert 16 * plan.slots_per_thread * (plan.threads + 1) \
+        == plan.smem_bytes <= 232448 - 4096
+    src = (ROOT / "src/repro_torch/csrc/wave_queue.cu").read_text()
+    assert "smem < 16LL * p.k * (threads + 1)" in src
+    assert "blocks < 1 || blocks > kMaxBlocks" in src
+    # a one-pass wave fills its blocks but for the last one's tail
+    if plan.passes == 1 and n:
+        assert (plan.blocks - 1) * plan.threads * plan.slots_per_thread < n
+
+
+def test_wave_queue_plan_refuses_a_negative_wave():
+    with pytest.raises(ValueError, match="slots"):
+        WSCAN.plan_wave_queue(-1)
+
+
+def _queue_inputs(n, banks=6, channels=8):
+    slots = (torch.zeros(n), torch.zeros(n, dtype=torch.int32),
+             torch.zeros(n, dtype=torch.bool),
+             torch.zeros(n, dtype=torch.int32),
+             torch.zeros(n, dtype=torch.int32),
+             torch.zeros(n, dtype=torch.bool),
+             torch.zeros(n, dtype=torch.bool),
+             torch.zeros(n, dtype=torch.bool))
+    carry = QueueCarry(*(torch.zeros(banks if i < 2 else channels)
+                         for i in range(8)),
+                       cur_row=torch.zeros(channels, dtype=torch.int32))
+    return slots, carry
+
+
+QKW = dict(banks=6, channels=8, l2_svc=4.0, l2_lat=20.0, occ_rowhit=5.0,
+           occ_rowmiss=10.0)
+
+
+def test_wave_queue_layout_packs_the_call():
+    """The argument array's head is the plan and the float32 bits of the
+    constants (12 words, as the C entry reads them: pointers from word
+    12); the one output buffer holds t_head, t0, the eight float
+    carry fields, cur_row and row_hit in whole words, back to back."""
+    n = 1000
+    lay = WSCAN._layout(n, 6, 8, 0, 4.0, 20.0, 5.0, 10.0, True)
+    plan = WSCAN.plan_wave_queue(n)
+    assert lay.plan == plan
+    assert lay.head[:8] == [n, 6, 8, 1, plan.blocks, plan.threads,
+                            plan.slots_per_thread, plan.smem_bytes]
+    bits = np.array([4.0, 20.0, 5.0, 10.0], np.float32).view(np.int32)
+    assert lay.head[8:] == bits.tolist() and len(lay.head) == 12
+    assert lay.split == [n, n, 6, 6] + [8] * 6 + [8, 250]
+    assert lay.words == sum(lay.split)
+    assert lay.offsets == [4 * sum(lay.split[:i]) for i in range(12)]
+    assert len(lay.expect) == len(lay.names) == 17
+    assert lay.names[:8] == ("t_s", "bank", "ch", "row", "use_l2",
+                             "go_dram", "byp", "hp")
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(banks=9), "banks and channels"), (dict(channels=0), "banks"),
+    (dict(occ_rowhit=5.5), "integer-valued"),
+    (dict(l2_svc=4.0, occ_rowmiss=70.0), "2\\*\\*24")])
+def test_wave_queue_layout_refuses_what_the_kernel_does_not_take(kw, match):
+    args = {**QKW, **kw}
+    n = 250000
+    with pytest.raises(ValueError, match=match):
+        WSCAN._layout(n, args["banks"], args["channels"], 0, args["l2_svc"],
+                      20.0, args["occ_rowhit"], args["occ_rowmiss"], False)
+
+
+def test_wave_queue_kernel_entry_refuses_cpu_tensors():
+    slots, carry = _queue_inputs(10)
+    with pytest.raises(ValueError, match="CUDA"):
+        WSCAN.wave_queue_cuda(*slots, carry, exact=False, **QKW)
+    with pytest.raises(ValueError, match="CUDA"):
+        WSCAN.wave_queue_recovery(*slots, carry, exact=False,
+                                  backend="cuda", **QKW)
 
 
 # ---------------------------------------------------------------------------

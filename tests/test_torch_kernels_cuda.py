@@ -82,6 +82,22 @@ def test_wave_queue_kernel_bitwise_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("dyadic", [True, False])
+@pytest.mark.parametrize("n", [8192, 16384, 262144])
+def test_wave_queue_wide_waves_bitwise_on_card(cuda_device, n, dyadic,
+                                               exact):
+    """HAMMER2K's wave (one block pass of 16 slots a thread), HAMMER4K's
+    (two passes) and WIDE64K's (32 passes), against the plain version."""
+    import numpy as np
+    slots, carry = CS.wave_case(np.random.default_rng(n + dyadic), n, dyadic)
+    kern = WSCAN.wave_queue_cuda(*slots, carry, exact=exact, **CS.QKW)
+    plain = WSCAN._ref.wave_queue_recovery_ref(*slots, carry, exact=exact,
+                                               **CS.QKW)
+    assert CS.max_abs_err(CS.flat(kern), CS.flat(plain)) == 0.0
+
+
+@pytest.mark.cuda
 def test_wave_cache_kernel_bitwise_on_card(cuda_device):
     assert CS.phase_wave_cache()["max_abs_err"] == 0.0
 
@@ -220,6 +236,25 @@ def test_chip_smoke_leaves_no_pallas_kernel_unported():
 @pytest.mark.cuda
 def test_rg_lru_kernel_bitwise_on_card(cuda_device):
     assert CS.phase_rg_lru(cuda_device)["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dk", [192, 256])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 1024])
+def test_mlstm_chunk_edges_on_card(cuda_device, s, dk, dtype):
+    """One position, a chunk less one, one chunk, one more, the prefill's
+    16 chunks; from a nonzero state and from the empty one: outputs and
+    the final state within 5e-4 / 5e-3 of the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + dk)
+    for with_state in (True, False):
+        args, state = CS._mlstm_inputs(gen, cuda_device, 1, s, 2, dk, 384,
+                                       dtype, with_state)
+        out, st = MLSTM.mlstm_cuda(*args, state)
+        p_out, p_st = MLSTM._ref.mlstm_chunkwise_ref(*args, state)
+        for a, ref in zip((out,) + st, (p_out,) + p_st):
+            assert bool(torch.isfinite(a).all())
+            torch.testing.assert_close(a, ref, atol=5e-4, rtol=5e-3)
 
 
 @pytest.mark.cuda

@@ -4,7 +4,9 @@ against the reference's ``mlstm_ref`` (the exact recurrent form), its
 ``mlstm_chunkwise`` and its Pallas kernel in interpret mode on
 ``tests/test_kernels.py``'s grid — outputs and the final state — plus
 what the Pallas kernel does not take (a state in and out, ragged S);
-``mlstm_apply`` and ``slstm_apply`` against ``repro.models.xlstm``.
+``mlstm_apply`` and ``slstm_apply`` against ``repro.models.xlstm``; the
+Hopper kernel's product precision (``mlstm_chunkwise_tc_model``: TF32
+hi/lo operand splits) against the plain version and the JAX reference.
 Tolerance: 5e-4 abs / 5e-3 rel for the chunkwise form against other
 forms, the reference's own (``tests/test_kernels.py:148``); 1e-5 where
 both sides compute the same form."""
@@ -134,6 +136,87 @@ def test_gate_runs_the_plain_version_on_the_cpu_and_refuses_cuda():
         ML.mlstm(*x, backend="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         ML.mlstm_cuda(*x)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's product precision
+# ---------------------------------------------------------------------------
+
+def test_tf32_split_rounds_to_nearest_away_and_keeps_21_bits():
+    one = np.float32(1.0)
+    half = np.float32(1.0 + 2.0 ** -11)      # halfway between two TF32s
+    below = np.float32(1.0 + 2.0 ** -12)
+    x = torch.tensor([one, half, -half, below, 3.0e-30, -7.5e12])
+    hi = MR.tf32_round(x)
+    assert (hi.view(torch.int32) & 0x1FFF == 0).all()
+    assert hi.tolist()[:4] == [1.0, 1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                               1.0]
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(4096)
+                          * 10.0 ** rng.uniform(-6, 6, 4096))
+                         .astype(np.float32))
+    hi, lo = MR.tf32_split(x)
+    assert ((x - hi - lo).abs() <= 2.0 ** -21 * x.abs()).all()
+    bf = x.bfloat16().float()                # bf16 values are TF32 values
+    assert torch.equal(MR.tf32_split(bf)[0], bf)
+    assert not MR.tf32_split(bf)[1].any()
+
+
+def test_tc_einsum_is_near_float32_where_plain_tf32_is_not():
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((64, 192)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((192, 32)).astype(np.float32))
+    exact = (a.double() @ b.double())
+    split = MR.tc_einsum("ik,kj->ij", a, b)
+    plain = MR.tf32_round(a) @ MR.tf32_round(b)
+    assert float((split.double() - exact).abs().max()) < 1e-4
+    assert float((plain.double() - exact).abs().max()) > 1e-3
+
+
+#: (B, S, H, Dk, Dv, dtype of q/k/v, state): small shapes, then the
+#: xLSTM-125M head (Dk 192, Dv 384) at S 70 (a ragged second chunk)
+TC_GRID = [(2, 5, 2, 16, 24, "float32", False),
+           (1, 64, 2, 32, 40, "bfloat16", True),
+           (2, 70, 1, 24, 16, "float32", True),
+           (2, 70, 2, 192, 384, "bfloat16", False),
+           (2, 70, 2, 192, 384, "float32", True),
+           (1, 70, 1, 256, 96, "bfloat16", True)]
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,dtype,with_state", TC_GRID)
+def test_tc_model_matches_plain_version_and_reference(b, s, h, dk, dv,
+                                                      dtype, with_state):
+    """The kernel's numerics (q.k^T, W.V, q.C and (k * sc)^T.V as split
+    TF32 products) within 5e-4 / 5e-3 of the plain chunkwise version and
+    of the JAX reference's exact recurrent form, outputs and final state,
+    under ``jax.disable_jit()``."""
+    rng = np.random.default_rng(s * dk + b)
+    x = list(_inputs(rng, b, s, h, dk, dv))
+    if dtype == "bfloat16":    # inputs the kernel gets as bf16
+        x[:3] = [np.asarray(torch.from_numpy(a).bfloat16().float())
+                 for a in x[:3]]
+    st = None
+    if with_state:
+        st = _state(rng, b, h, dk, dv)
+        st = (st[0], np.abs(st[1]), st[2])
+    tx = _t(x)
+    if dtype == "bfloat16":
+        tx[:3] = [a.bfloat16() for a in tx[:3]]
+    tst = tuple(_t(st)) if st is not None else None
+    ours, ost = MR.mlstm_chunkwise_tc_model(*tx, tst)
+    plain, pst = MR.mlstm_chunkwise_ref(*tx, tst)
+    for a, r, name in zip((ours,) + ost, (plain,) + pst, "hCnm"):
+        torch.testing.assert_close(a, r, atol=ATOL, rtol=RTOL,
+                                   msg=f"{name} vs the plain version")
+    with jax.disable_jit():
+        if st is None:
+            ref = j_mlstm_ref(*_j(x))
+            _, rst = JX.mlstm_recurrent_ref(*_j(x))
+        else:
+            ref, rst = JX.mlstm_recurrent_ref(*_j(x), tuple(_j(st)))
+    _close(ours, ref, what="h vs the JAX reference")
+    for a, r, name in zip(ost, rst, "Cnm"):
+        _close(a, r, what=f"final {name} vs the JAX reference")
 
 
 # ---------------------------------------------------------------------------

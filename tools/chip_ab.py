@@ -16,10 +16,12 @@ For each tree in the order given, one process imports that tree's own
     timed per block);
   * ``scale``   — HAMMER2K × {Baseline, PCAL, WByp, MeDiC} through the
     wavefront engine, three runs: requests per second of each;
-  * ``kernels`` — the pool gather and the cache pass at their paths'
-    calls, split into device and host time: ``ms`` (CUDA events around
-    the wrapper, host included), ``device_ms`` (every kernel the call
-    launches, torch.profiler), ``kernel_ms`` (the named kernel alone),
+  * ``kernels`` — the pool gather, the cache pass, the timing pass (N
+    8192 and 16,384), the mLSTM (the xLSTM-125M prefill's call) and the
+    RG-LRU (the hybrid prefill's) at their paths' calls, split into device
+    and host time: ``ms`` (CUDA events around the wrapper, host
+    included), ``device_ms`` (every kernel the call launches,
+    torch.profiler), ``kernel_ms`` (the named kernel alone),
     ``enqueue_us`` (host clock per call over a run of calls, no
     synchronize inside); beside them ``torch.index_select`` and the
     engine's offload read of K and V, and the gather's and
@@ -120,7 +122,24 @@ def measure_kernels(CS) -> dict:
                                  prm, BL.MEDIC, addr_hi=1 << 20)
     cache = _split(CS, lambda: CPASS.wave_cache_cuda(st, *args, prm, pa),
                    "wave_cache", iters=50)
-    return dict(medic_gather=gather, wave_cache=cache)
+    queue = {}
+    for n in (8192, 16384):
+        slots, carry = CS.wave_case(np.random.default_rng(1), n, False)
+        queue[n] = _split(CS, lambda slots=slots, carry=carry:
+                          CS.WSCAN.wave_queue_cuda(*slots, carry, exact=False,
+                                                   **CS.QKW), "wave_queue")
+    margs, _ = CS._mlstm_inputs(gen, dev, 4, 1024, 4, 192, 384,
+                                torch.bfloat16, False)
+    mlstm = _split(CS, lambda: CS.MLSTM.mlstm_cuda(*margs), "mlstm", iters=20)
+    a = 0.9 + 0.099 * torch.rand((2, 3072, 2560), generator=gen, device=dev)
+    x = 0.1 * torch.randn((2, 3072, 2560), generator=gen, device=dev)
+    h0 = torch.randn((2, 2560), generator=gen, device=dev)
+    rg_lru = _split(CS, lambda: CS.RGLRU.rg_lru_cuda(a, x, h0), "rg_lru",
+                    iters=50)
+    rg_lru["queued_ms"] = CS.queued_ms(lambda: CS.RGLRU.rg_lru_cuda(a, x, h0),
+                                       iters=50)
+    return dict(medic_gather=gather, wave_cache=cache, wave_queue=queue,
+                mlstm=mlstm, rg_lru=rg_lru)
 
 
 def measure_scale(CS, runs: int = 3) -> dict:
