@@ -56,7 +56,8 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      step) and a 500-step MeDiC run split by engine method;
  10. rg_lru, mlstm — the hybrid and ssm paths' kernels against their
      plain versions on fuzz grids and at the paths' shapes (rg_lru
-     bitwise; mlstm within 5e-4 / 5e-3, the reference's own, on the
+     bitwise, in both copy instances, with its plan and its share of the
+     byte bound; mlstm within 5e-4 / 5e-3, the reference's own, on the
      outputs and the final state, at S 1, 63, 64, 65 and 1024, Dk 192 and
      256, bf16 and float32), with ms, device ms and queued ms per call
      (mlstm also by kernel, and against the CPU-tested model of its
@@ -1195,40 +1196,66 @@ def phase_serving_profile(cfg=None, dev=DEV, engine_steps: int = 500) -> dict:
 # phase 10: the hybrid and ssm paths' kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-#: (B, S, W, a_lo, a_hi): odd S and W, one step, a ~ 1, the path's shape
+#: (B, S, W, a_lo, a_hi): odd S and W, one step, a ~ 1, W % 4 == 0 off a
+#: block's 32 channels (36, 100), S off the tile (33, 1000) at the path's
+#: W, the path's shape; each in both copy instances where W % 4 == 0
 RG_LRU_CASES = [(1, 1, 1, 0.8, 0.999), (2, 33, 65, 0.8, 0.999),
                 (3, 48, 384, 0.8, 0.999), (2, 64, 256, 0.8, 0.999),
                 (1, 1000, 7, 0.8, 0.999), (2, 40, 24, 0.9999, 1.0),
+                (2, 77, 36, 0.8, 0.999), (3, 129, 100, 0.8, 0.999),
+                (1, 33, 2560, 0.9, 0.999), (1, 1000, 2560, 0.9, 0.999),
                 (2, 3072, 2560, 0.9, 0.999)]
+
+
+def _rg_lru_case(gen, dev, b, s, w, lo, hi, offset=0):
+    """a, b [b, s, w] and h0 [b, w]; with ``offset`` floats, a and b are
+    views that start ``offset`` floats into a larger buffer (so off 16
+    bytes, and taken by the 4-byte copy instance)."""
+    def view(t):
+        if not offset:
+            return t
+        buf = torch.empty(t.numel() + offset, device=dev)
+        buf[offset:] = t.view(-1)
+        return buf[offset:].view(t.shape)
+    a = lo + (hi - lo) * torch.rand((b, s, w), generator=gen, device=dev)
+    x = 0.1 * torch.randn((b, s, w), generator=gen, device=dev)
+    h0 = torch.randn((b, w), generator=gen, device=dev)
+    return view(a), view(x), h0
 
 
 def phase_rg_lru(dev=DEV) -> dict:
     gen = torch.Generator(device=dev).manual_seed(13)
-
-    def case(b, s, w, lo, hi):
-        a = lo + (hi - lo) * torch.rand((b, s, w), generator=gen, device=dev)
-        x = 0.1 * torch.randn((b, s, w), generator=gen, device=dev)
-        h0 = torch.randn((b, w), generator=gen, device=dev)
-        return a, x, h0
-    for b, s, w, lo, hi in RG_LRU_CASES:
-        args = case(b, s, w, lo, hi)
-        out = RGLRU.rg_lru_cuda(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(out, RGLRU._ref.rg_lru_ref(*args)),
-              f"rg_lru B={b} S={s} W={w}: kernel != plain")
+    runs = {"16-byte": 0, "4-byte": 0}
+    cases = [c + (0,) for c in RG_LRU_CASES] + [(2, 65, 2560, 0.9, 0.999, 1),
+                                                (1, 100, 36, 0.8, 0.999, 3)]
+    for b, s, w, lo, hi, offset in cases:
+        args = _rg_lru_case(gen, dev, b, s, w, lo, hi, offset)
+        plain = RGLRU._ref.rg_lru_ref(*args)
+        plan = RGLRU.plan_rg_lru(b, s, w, RGLRU.aligned16(*args[:2]))
+        check(offset == 0 or plan.vec == 1,
+              f"rg_lru offset view B={b} S={s} W={w}: not the 4-byte copies")
+        for vec in sorted({plan.vec, 1}, reverse=True):
+            p = RGLRU.plan_rg_lru(b, s, w, plan.vec == 4, vec=vec)
+            out = RGLRU.rg_lru_cuda(*args, plan=p)
+            torch.cuda.synchronize()
+            check(torch.equal(out, plain), f"rg_lru B={b} S={s} W={w} "
+                  f"offset {offset}, {4 * vec}-byte copies: kernel != plain")
+            runs[f"{4 * vec}-byte"] += 1
     # timing at the hybrid prefill's call: one rec layer, B 2, S 3072, W 2560
-    args = case(2, 3072, 2560, 0.9, 0.999)
+    args = _rg_lru_case(gen, dev, 2, 3072, 2560, 0.9, 0.999)
+    plan = RGLRU.plan_rg_lru(2, 3072, 2560, RGLRU.aligned16(*args[:2]))
     ms = time_ms(lambda: RGLRU.rg_lru_cuda(*args), iters=50)
     dev_ms = device_ms(lambda: RGLRU.rg_lru_cuda(*args))
     # the card's clock with the host hidden, beside the profiler's
     q_ms = queued_ms(lambda: RGLRU.rg_lru_cuda(*args), iters=50)
     plain_ms = time_ms(lambda: RGLRU._ref.rg_lru_ref(*args), iters=2)
     out = RGLRU.rg_lru_cuda(*args)
-    return dict(cases=len(RG_LRU_CASES), max_abs_err=0.0, ms=ms,
+    moved = nbytes(list(args) + [out])
+    return dict(cases=len(cases), runs=runs, max_abs_err=0.0, ms=ms,
                 device_ms=dev_ms, queued_ms=q_ms, plain_ms=plain_ms,
-                library_ms=None,
-                shape=[2, 3072, 2560],
-                bytes=nbytes(list(args) + [out]), ops=2 * out.numel())
+                library_ms=None, shape=[2, 3072, 2560], plan=plan._asdict(),
+                byte_bound_share=moved / HBM_BYTES_PER_S * 1e3 / dev_ms,
+                bytes=moved, ops=2 * out.numel())
 
 
 #: (B, S, H, Dk, Dv, dtype, state): S = 1, S < chunk, whole and ragged

@@ -2,7 +2,8 @@
 CPU: the cache pass's instance plan (shared-memory bytes, resident or
 global state, the wave limits) and the packed layouts of its outputs; the
 timing pass's plan (slots a thread, threads, block passes) and its packed
-call; the pool gather's several-pool form against the JAX reference; the
+call; the RG-LRU kernel's plan (copy instance, channels, tile steps, ring
+stages) and a model of its walk through the ring; the pool gather's several-pool form against the JAX reference; the
 serving engine's offload table built on the device. The kernels themselves are
 held against these on the card (``tests/test_torch_kernels_cuda.py``,
 ``chip_smoke.py``)."""
@@ -21,6 +22,8 @@ from repro_torch.core import baselines as BL
 from repro_torch.core.engine.state import SimParams
 from repro_torch.kernels.cache_pass import ops as CPASS
 from repro_torch.kernels.medic_gather import ops as GATHER
+from repro_torch.kernels.rg_lru import ops as RGLRU
+from repro_torch.kernels.rg_lru import ref as RGLRU_REF
 from repro_torch.kernels.wavefront_scan import ops as WSCAN
 from repro_torch.kernels.wavefront_scan.ref import QueueCarry
 from repro_torch.serving import engine as ENG
@@ -376,6 +379,100 @@ def test_gather_pools_backend_gate():
         GATHER.medic_gather_pools_cuda((pool, pool), tbl)
     with pytest.raises(ValueError, match="unknown"):
         GATHER.medic_gather_pools((pool,), tbl, backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU kernel's plan and its walk through the ring
+# ---------------------------------------------------------------------------
+
+def _rg_const(src: str, name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("w,aligned,vec", [
+    (2560, True, 4), (36, True, 4), (100, True, 4), (4, True, 4),
+    (2560, False, 1), (36, False, 1), (7, True, 1), (65, True, 1),
+    (1, True, 1), (102, True, 1)])
+def test_rg_lru_plan_instance_by_width_and_alignment(w, aligned, vec):
+    """16-byte copies where W % 4 == 0 and a and b are 16-byte aligned
+    (the hybrid's W 2560), else 4-byte copies (W 7, 65; a view that starts
+    off 16 bytes)."""
+    plan = RGLRU.plan_rg_lru(2, 33, w, aligned)
+    assert plan.vec == vec
+    assert RGLRU.plan_rg_lru(2, 33, w, aligned, vec=1).vec == 1
+    if vec == 1:
+        with pytest.raises(ValueError, match="16-byte copy instance"):
+            RGLRU.plan_rg_lru(2, 33, w, aligned, vec=4)
+    with pytest.raises(ValueError, match="copy instance"):
+        RGLRU.plan_rg_lru(2, 33, w, aligned, vec=2)
+
+
+def test_rg_lru_plan_at_the_hybrid_prefill():
+    assert RGLRU.plan_rg_lru(2, 3072, 2560, True) == RGLRU.RgLruPlan(
+        4, 32, 32, 4, 32768, 160)
+
+
+def test_rg_lru_aligned16_reads_every_pointer():
+    buf = torch.zeros(64)
+    assert RGLRU.aligned16(buf, buf[4:])
+    assert not RGLRU.aligned16(buf, buf[1:])
+    assert not RGLRU.aligned16(buf[2:])
+
+
+def test_rg_lru_plan_tiles_are_the_c_sources():
+    """The C entry launches the tiles it was built with (kC, kT, kStages)
+    and refuses a plan that names others; the planner states the same, and
+    the ring fits the card's 227 KB of shared memory a block."""
+    src = (ROOT / "src/repro_torch/csrc/rg_lru.cu").read_text()
+    assert (_rg_const(src, "kC"), _rg_const(src, "kT"),
+            _rg_const(src, "kStages")) == (RGLRU.CHANNELS, RGLRU.STEPS,
+                                           RGLRU.STAGES)
+    assert "c == kC && t == kT && stages == kStages" in src
+    assert "b <= 65535" in src and RGLRU.MAX_B == 65535
+    assert 2 * RGLRU.STAGES * RGLRU.STEPS * RGLRU.CHANNELS * 4 <= 227 * 1024
+
+
+@pytest.mark.parametrize("b,s,w", [(1, 1, 1), (2, 3072, 2560), (3, 1000, 7),
+                                   (65535, 2, 36), (1, 33, 65)])
+def test_rg_lru_plan_is_inside_the_c_entrys_bounds(b, s, w):
+    """Every shape the kernel takes gets the built tiles, ceil(W / C) x B
+    blocks and the instance its width allows."""
+    plan = RGLRU.plan_rg_lru(b, s, w, True)
+    assert plan[1:4] == (RGLRU.CHANNELS, RGLRU.STEPS, RGLRU.STAGES)
+    assert plan.smem_bytes == 2 * plan.stages * plan.steps * plan.channels * 4
+    assert plan.blocks == -(-w // plan.channels) * b
+    assert plan.vec == (4 if w % 4 == 0 else 1)
+
+
+@pytest.mark.parametrize("b,s,w,match", [
+    (65536, 8, 32, "B <="), (0, 8, 32, "B <="), (1, 0, 32, "S >= 1"),
+    (1, 8, 0, "W >= 1"), (2, -3, 7, "S >= 1")])
+def test_rg_lru_plan_refuses_shapes_outside_the_kernel(b, s, w, match):
+    with pytest.raises(ValueError, match=match):
+        RGLRU.plan_rg_lru(b, s, w, True)
+
+
+def _rg_inputs(rng, b, s, w):
+    a = torch.from_numpy(rng.uniform(0.8, 0.999, (b, s, w)).astype(np.float32))
+    x = torch.from_numpy((rng.standard_normal((b, s, w)) * 0.1)
+                         .astype(np.float32))
+    h0 = torch.from_numpy(rng.standard_normal((b, w)).astype(np.float32))
+    return a, x, h0
+
+
+@pytest.mark.parametrize("s", [1, 33, 1000])
+@pytest.mark.parametrize("w", [7, 65, 2560])
+def test_rg_lru_ring_walk_equals_the_plain_version_bitwise(s, w):
+    """The kernel's walk, tile by tile through the ring with h carried
+    across tiles, under the built tiles and others (two stages of 8 steps;
+    8 stages of 128; tiles longer than S)."""
+    b = 1 if w == 2560 else 2
+    args = _rg_inputs(np.random.default_rng(s * w), b, s, w)
+    plain = RGLRU_REF.rg_lru_ref(*args)
+    for steps, stages in ((RGLRU.STEPS, RGLRU.STAGES), (8, 2), (128, 8),
+                          (24, 3)):
+        got = RGLRU_REF.rg_lru_ring_model(*args, steps, stages)
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -239,6 +239,47 @@ def test_rg_lru_kernel_bitwise_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("vec", [4, 1])
+def test_rg_lru_each_copy_instance_bitwise_on_card(cuda_device, vec):
+    """Each copy instance asked for by name: every chip_smoke case it
+    takes (the 16-byte one needs W % 4 == 0), the 4-byte one also on views
+    that start off 16 bytes; torch.equal to the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(vec)
+    cases = [c + (0,) for c in CS.RG_LRU_CASES if vec == 1 or c[2] % 4 == 0]
+    if vec == 1:
+        cases += [(2, 65, 2560, 0.9, 0.999, 1), (1, 100, 36, 0.8, 0.999, 3)]
+    for b, s, w, lo, hi, offset in cases:
+        args = CS._rg_lru_case(gen, cuda_device, b, s, w, lo, hi, offset)
+        plan = RGLRU.plan_rg_lru(b, s, w, RGLRU.aligned16(*args[:2]),
+                                 vec=vec)
+        out = RGLRU.rg_lru_cuda(*args, plan=plan)
+        assert torch.equal(out, RGLRU._ref.rg_lru_ref(*args)), (b, s, w)
+
+
+@pytest.mark.cuda
+def test_rg_lru_refuses_what_the_kernel_does_not_take(cuda_device):
+    """Non-float32 or non-contiguous inputs raise before the launch; a plan
+    outside the C entry's bounds, or the 16-byte instance on a view off 16
+    bytes, raises from the launch; none counts as a launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    a, x, h0 = CS._rg_lru_case(gen, cuda_device, 2, 8, 36, 0.8, 0.999)
+    before = RGLRU.RG_LRU.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        RGLRU.rg_lru_cuda(a.double(), x, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        RGLRU.rg_lru_cuda(a.transpose(1, 2).contiguous().transpose(1, 2),
+                          x, h0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        RGLRU.rg_lru_cuda(a, x, h0,
+                          plan=RGLRU.RgLruPlan(4, 32, 12, 4, 12288, 4))
+    va, vx, _ = CS._rg_lru_case(gen, cuda_device, 2, 8, 36, 0.8, 0.999, 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        RGLRU.rg_lru_cuda(va, vx, h0,
+                          plan=RGLRU.plan_rg_lru(2, 8, 36, True, vec=4))
+    assert RGLRU.RG_LRU.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("dk", [192, 256])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 1024])
