@@ -6,7 +6,7 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``); exits non-zero
 without them. Phases, one JSON line each on stdout (with its seconds):
 
   1. device   — the card's name and power limit;
-  2. build    — all seven CUDA kernels compiled from ``src/repro_torch/csrc``
+  2. build    — all eight CUDA kernels compiled from ``src/repro_torch/csrc``
      (one ``nvcc`` each, all at once);
   3. wave_queue — the timing-pass kernel against its plain PyTorch
      version on the card, bitwise, on fuzzed waves of 1 to 262,144 slots
@@ -30,7 +30,30 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      HAMMER4K × MeDiC and WIDE64K × MeDiC (65,536 warps, waves of 16,384
      slots; its trace cut as ``WIDE_INSTR`` says), each with one launch of
      each kernel per wave;
-  7. medic_gather, decode_attention, flash_attention — each serving-path
+  7. event    — the event engine's loop kernel against its eager plain
+     loop on the card, bitwise on the whole final state, ready times,
+     pointers, ratio snapshots and every public output: W {1, 2, 48, 64} ×
+     I {1, 8} × L {1, 16} (without the combinations over 1024 request
+     steps, ``EVENT_CUT``), the 11 fig7 policies plus the stale and oracle
+     rungs with a per-instruction gap, in all four instances (state and
+     rows each in shared or global memory); a seed stack, an EAF that
+     resets every 8 evictions, and two hierarchies whose rows or state
+     take global memory by the plan. ms and device ms on fig7's buckets
+     (44 and 165 blocks at paper scale), the plain loop's ms on the quick
+     bucket cut to 1 instruction, and the dependent-chain bound;
+  8. fig7     — ``repro_torch.paper_figures.fig7_performance`` on the quick
+     workloads through ``repro_torch.api`` on the card: the fig7 goldens
+     within 1e-6, the paper's ordering, one event-loop launch per bucket
+     (counted from 0); then ``registry.PAPER_FIG7`` (one bucket of 165
+     simulations): its wall and harmonic-mean speedups;
+  9. wave1    — BP at paper scale × {Baseline, MeDiC}: the wavefront engine
+     with waves of one warp equals the event engine within rtol = atol =
+     1e-5;
+ 10. api      — ``registry.STRESS`` through ``repro_torch.api`` (wavefront,
+     both kernels once a wave, counted from 0): requests/s per call and
+     MeDiC's rank per scenario; then the PHASED256 / PHASED_RECOVER256
+     goldens through ``Experiment.run``;
+ 11. medic_gather, decode_attention, flash_attention — each serving-path
      kernel against its plain version on the card at the path's shapes
      (the gather bitwise, one pool and several in one launch, both of its
      routes, holes and all-hole tables; the attention kernels within the
@@ -42,7 +65,7 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      wrapper), the kernels' own device time per call (torch.profiler),
      the decode kernel's split (n_split), the plain version's ms, one
      PyTorch library call's ms and device ms, bytes and flops;
-  8. serving  — the serving main path: ``run_ab`` on Qwen3-1.7B at full
+ 12. serving  — the serving main path: ``run_ab`` on Qwen3-1.7B at full
      width (28 layers, random weights from a seed) with every count set
      to 0 just before and read just after; both policies' integers equal
      the reference's pinned ones, and each kernel's launches equal what
@@ -51,10 +74,10 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      MeDiC for a few steps with the kernels and with their plain versions
      (backend="ref") in float32 at full width: snapshots equal, committed
      K/V caches within 2e-2;
-  9. serving_profile — where the time goes: a full-width decode step
+ 13. serving_profile — where the time goes: a full-width decode step
      (host wall, device time per kernel from torch.profiler, kernels per
      step) and a 500-step MeDiC run split by engine method;
- 10. rg_lru, mlstm — the hybrid and ssm paths' kernels against their
+ 14. rg_lru, mlstm — the hybrid and ssm paths' kernels against their
      plain versions on fuzz grids and at the paths' shapes (rg_lru
      bitwise, in both copy instances, with its plan and its share of the
      byte bound; mlstm within 5e-4 / 5e-3, the reference's own, on the
@@ -63,7 +86,7 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      (mlstm also by kernel, and against the CPU-tested model of its
      product precision) and the plain version's ms (no single PyTorch call
      computes either);
- 11. hybrid_serve, ssm_serve — the hybrid and ssm main paths at full
+ 15. hybrid_serve, ssm_serve — the hybrid and ssm main paths at full
      width: ``build_model(cfg).init_params`` (random weights from seed 0)
      -> ``prefill`` -> 32 greedy ``decode`` steps, RecurrentGemma-2B on 2
      prompts of 3072 tokens (ring of 2048 = the local window) and
@@ -73,10 +96,11 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      kernels and through their plain versions: logits within the
      family's SERVE_F32_TOL, greedy tokens equal wherever the top-two gap
      is wider;
- 12. kernels  — one JSON object per kernel: launches on its paths, max
+ 16. kernels  — one JSON object per kernel: launches on its paths, max
      error against the plain version, ms and device ms, the bound and the
      library call's ms and device ms; every Pallas kernel of the
-     reference has its row.
+     reference has its row, and so has the port-side event loop (with its
+     dependent-chain bound).
 
 Then the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -97,23 +121,29 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import paper_figures as PF  # noqa: E402
+from repro_torch.api import registry as REG  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import baselines as BL  # noqa: E402
 from repro_torch.core import tracegen as TG  # noqa: E402
+from repro_torch.core import workloads as WL  # noqa: E402
 from repro_torch.core.classifier import ClassifierState  # noqa: E402
 from repro_torch.core.engine import (SimParams, init_state,  # noqa: E402
                                      simulate_sweep)
+from repro_torch.core.engine import event as EV  # noqa: E402
 from repro_torch.core.engine import wavefront as WF  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cache_pass import ops as CPASS  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DEC  # noqa: E402
+from repro_torch.kernels.event_loop import ops as EVL  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FLASH  # noqa: E402
 from repro_torch.kernels.medic_gather import ops as GATHER  # noqa: E402
 from repro_torch.kernels.mlstm import ops as MLSTM  # noqa: E402
 from repro_torch.kernels.rg_lru import ops as RGLRU  # noqa: E402
 from repro_torch.kernels.wavefront_scan import ops as WSCAN  # noqa: E402
 from repro_torch.kernels.wavefront_scan.ref import QueueCarry  # noqa: E402
-from repro_torch.policy import ops as POL, to_arrays  # noqa: E402
+from repro_torch.policy import (ops as POL, stack_policies,  # noqa: E402
+                                to_arrays)
 from repro_torch.serving import engine as ENG  # noqa: E402
 from repro_torch.serving.pool import PoolConfig  # noqa: E402
 from repro_torch.serving.request import (ServeWorkload,  # noqa: E402
@@ -171,12 +201,19 @@ KERNELS = {
         route="cuda", source="src/repro_torch/csrc/mlstm.cu",
         replaces="src/repro/kernels/mlstm/kernel.py:79"),
 }
+#: kernels of the port with no Pallas counterpart: the reference runs the
+#: event engine's loop as a lax.scan
+PORT_KERNELS = {
+    "event_loop": dict(
+        route="cuda", source="src/repro_torch/csrc/event_loop.cu",
+        replaces="src/repro/core/engine/event.py:146", pallas=None),
+}
 #: the C source of each kernel (its Kernel object's name)
 SOURCES = {"wave_queue": "wave_queue", "wave_cache": "wave_cache",
            "medic_gather": "medic_gather",
            "paged_decode_attention": "decode_attention",
            "flash_attention": "flash_attention", "rg_lru": "rg_lru",
-           "mlstm": "mlstm"}
+           "mlstm": "mlstm", "event_loop": "event_loop"}
 #: Pallas kernels of the reference that the port has not ported yet
 TO_PORT: list = []
 
@@ -596,7 +633,357 @@ def phase_scale() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the serving path's kernels against their plain versions
+# phases 7-10: the event engine's kernel, the fig7 goldens, wave_size=1 and
+# the declarative API
+# ---------------------------------------------------------------------------
+
+#: copies of tests/test_golden_fig7.py:30-46 (event engine, seed 0, default
+#: SimParams, QUICK_WORKLOADS, rounded to 4 decimals)
+GOLDEN_FIG7_DERIVED = {
+    "hmean_speedup[Baseline]": 1.0, "hmean_speedup[EAF]": 1.015,
+    "hmean_speedup[PCAL]": 1.0655, "hmean_speedup[PC-Byp]": 1.0957,
+    "hmean_speedup[WIP]": 1.0195, "hmean_speedup[WMS]": 1.0123,
+    "hmean_speedup[WByp]": 1.3149, "hmean_speedup[MeDiC]": 1.3943,
+    "hmean_speedup[Rand(ideal)]": 1.0234, "medic_vs_best_prior": 1.2725}
+GOLDEN_FIG7_BFS = {
+    "Baseline": 1.0, "EAF": 1.0129, "PCAL": 1.2845, "PC-Byp": 1.2578,
+    "WIP": 1.0194, "WMS": 1.0108, "WByp": 1.5176, "MeDiC": 1.4974}
+
+#: the event phase's policies: the fig7 sweep plus the stale and oracle
+#: labeling rungs
+EVENT_POLICIES = tuple(REG.FIG7_SWEEP_POLICIES) + (BL.MEDIC_STALE,
+                                                   BL.MEDIC_ORACLE)
+#: (W, I, L) cases of the event phase: every warp count, instruction count
+#: and lane count of the grid W {1, 2, 48, 64} x I {1, 8} x L {1, 16}; the
+#: two combinations over 1024 request steps (48 x 8 x 16, 64 x 8 x 16) are
+#: cut, since the plain loop on the card costs ~5 ms a request step
+EVENT_GRID = [(w, i, l) for w in (1, 2, 48, 64) for i in (1, 8)
+              for l in (1, 16) if w * i * l <= 1024]
+EVENT_CUT = [(w, i, l) for w in (1, 2, 48, 64) for i in (1, 8)
+             for l in (1, 16) if w * i * l > 1024]
+#: hierarchies past the paper's whose state or rows do not fit in shared
+#: memory: 4096 x 4 sets with 7680 EAF bits leaves no room for 64 warps'
+#: rows; with 8192 EAF bits the state itself does not fit
+BIG_ROWS = SimParams(sets=4096, ways=4, eaf_bits=7680)
+BIG_STATE = SimParams(sets=4096, ways=4, eaf_bits=8192)
+#: shared-memory latency of the card in cycles (the order that
+#: microbenchmarks of Hopper's shared memory report): the unit of the
+#: event loop's dependent-chain bound
+SMEM_LATENCY_CYCLES = 30
+#: dependent shared-memory accesses a request step cannot avoid: the set's
+#: row is read, then written, and the next request's read of it must
+#: follow that write (the bank queue's read-modify-write runs beside it)
+CHAIN_ACCESSES = 2
+#: integer and float operations of one request step, counted from the
+#: kernel's code (hashes, decisions, queue and DRAM timing, observe,
+#: counters): ~100
+EVENT_OPS_PER_REQUEST = 100
+
+
+def event_case(w, i, l, seeds=(0,), spec_name="BFS", gap_per_instr=True):
+    """A trace of ``w`` warps, ``i`` instructions and ``l`` lanes from a
+    paper workload's mix, as numpy (seed-stacked when several seeds), with
+    a per-instruction gap when ``gap_per_instr``."""
+    spec = dataclasses.replace(
+        TG.TraceSpec.from_workload(WL.WORKLOADS[spec_name]), n_warps=w,
+        n_instr=i, lines_per_instr=l)
+    tr = {k: v[0] for k, v in TG.generate_batch([spec], seeds).items()}
+    if gap_per_instr:   # f32[S, I]: a schedule of intensities
+        tr["compute_gap"] = (tr["compute_gap"][:, None] * np.linspace(
+            0.5, 1.5, i, dtype=np.float32)[None, :]).astype(np.float32)
+    return tr
+
+
+def event_bucket(tr, policies, n_warps):
+    """The event loop's inputs (``event.Bucket``) on the card."""
+    as_t = lambda x, dt: torch.as_tensor(np.asarray(x)).to(DEV, dt)  # noqa
+    return EV.bucket(as_t(tr["lines"], torch.int32),
+                     as_t(tr["pcs"], torch.int32),
+                     as_t(tr["compute_gap"], torch.float32),
+                     as_t(tr["oracle_wtype"], torch.int32),
+                     stack_policies(policies, DEV), n_warps)
+
+
+def _event_both(tr, policies, w, l, prm, what, instances) -> int:
+    """The kernel in each of ``instances`` ((state, rows) overrides, None
+    for the plan's) against the plain loop on the card, bitwise on the
+    whole final state, ready times, pointers and ratio snapshots; then the
+    public outputs of ``simulate_core`` on the card against the plain
+    loop's, finalized. Returns the plain loop's request steps."""
+    b = event_bucket(tr, policies, w)
+    plain = EV.event_loop(b, n_warps=w, lanes=l, prm=prm)
+    for state, rows in instances:
+        kern = EVL.event_loop_cuda(b, n_warps=w, lanes=l, prm=prm,
+                                   state=state, rows=rows)
+        torch.cuda.synchronize()
+        e = max_abs_err(flat(kern), flat(plain))
+        inst = EVL.plan_event_loop(prm, w, state, rows)
+        check(e == 0.0 and all(torch.equal(x, y) for x, y in
+                               zip(flat(kern), flat(plain))),
+              f"event_loop {what} {inst}: kernel != plain (err {e})")
+    gap = torch.as_tensor(tr["compute_gap"]).to(DEV)
+    ko = EV.simulate_core(b.lines, b.pcs, gap, b.oracle,
+                          stack_policies(policies, DEV), n_warps=w, lanes=l,
+                          prm=prm, backend="cuda")
+    st, ready, _, ratio_t = plain
+    po = EV.finalize_bucket(st, ready, ratio_t, gap, n_instr=b.lines.shape[1],
+                            n_warps=w, prm=prm)
+    for k in po:
+        check(torch.equal(ko[k], po[k]), f"event {what} {k}: kernel != plain")
+    return b.lines.shape[1] * w * l
+
+
+def _event_timing(workloads, n_instr=None) -> dict:
+    """The kernel's ms and device ms on one bucket of the fig7 sweep
+    (``workloads`` × FIG7_SWEEP_POLICIES, seed 0, paper scale), with the
+    bytes it moves and its dependent-chain bound."""
+    parts = [TG.generate(TG.TraceSpec.from_workload(WL.WORKLOADS[n]), 0)
+             for n in workloads]
+    tr = {k: np.stack([p[k] for p in parts])
+          for k in ("lines", "pcs", "compute_gap", "oracle_wtype")}
+    if n_instr:
+        for k in ("lines", "pcs", "oracle_wtype"):
+            tr[k] = tr[k][:, :n_instr]
+    s, i, w, l = tr["lines"].shape
+    b = event_bucket(tr, REG.FIG7_SWEEP_POLICIES, w)
+    prm = SimParams()
+    run = lambda: EVL.event_loop_cuda(b, n_warps=w, lanes=l,  # noqa: E731
+                                      prm=prm)
+    out = run()
+    n = b.seed_of.shape[0]
+    steps = i * w * l
+    return dict(blocks=n, steps_per_block=steps, ms=time_ms(run, iters=5),
+                device_ms=device_ms(run, iters=5),
+                bytes=nbytes([b.lines, b.pcs, b.gap, b.oracle, b.tokens,
+                              *b.pa] + flat(out)),
+                ops=EVENT_OPS_PER_REQUEST * steps * n,
+                plan=EVL.plan_event_loop(prm, w)._asdict(), bucket=b,
+                shape=(i, w, l))
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, from ``nvidia-smi``."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
+
+
+def chain_bound_ms(steps_per_block: int) -> float:
+    """The event loop's dependent-chain bound: every block runs its
+    request steps one after another and all blocks of a bucket run at once
+    (at most three of 67 KB share an SM, 396 slots on 132 SMs), so the
+    least time is one block's chain of CHAIN_ACCESSES shared-memory
+    latencies a request step."""
+    return (CHAIN_ACCESSES * SMEM_LATENCY_CYCLES * steps_per_block
+            / sm_clock_hz() * 1e3)
+
+
+def phase_event() -> dict:
+    """The event-loop kernel against the eager plain loop on the card,
+    bitwise; its time on the fig7 buckets."""
+    steps, cases = 0, 0
+    prm = SimParams()
+    both = [(None, None), (False, False), (True, False), (False, True)]
+    for w, i, l in EVENT_GRID:
+        tr = event_case(w, i, l)
+        steps += _event_both(tr, EVENT_POLICIES, w, l, prm,
+                             f"W{w} I{i} L{l}", both)
+        cases += 1
+    # a seed stack (scalar gap per seed), an EAF that resets every 8
+    # evictions, and the two hierarchies whose rows / state live in global
+    # memory by the plan
+    extra = [("seeds", event_case(48, 1, 16, seeds=(0, 1, 2),
+                                  gap_per_instr=False),
+              (BL.BASELINE, BL.MEDIC, BL.PCAL, BL.EAF), 48, 16, prm),
+             ("eaf8", event_case(16, 2, 16, spec_name="CONS"),
+              (BL.BASELINE, BL.EAF, BL.MEDIC), 16, 16,
+              SimParams(eaf_capacity=8)),
+             ("big_rows", event_case(64, 1, 8), (BL.BASELINE, BL.MEDIC),
+              64, 8, BIG_ROWS),
+             ("big_state", event_case(32, 1, 8), (BL.BASELINE, BL.MEDIC),
+              32, 8, BIG_STATE)]
+    for what, tr, pols, w, l, p in extra:
+        inst = [(None, None)] if p.sets > 512 else both
+        steps += _event_both(tr, pols, w, l, p, what, inst)
+        cases += 1
+    plans = {k: EVL.plan_event_loop(p, w)._asdict()
+             for k, p, w in (("big_rows", BIG_ROWS, 64),
+                             ("big_state", BIG_STATE, 32))}
+    check(not plans["big_rows"]["rows"] and plans["big_rows"]["state"]
+          and not plans["big_state"]["state"], f"event plans {plans}")
+    # the kernel on fig7's buckets: the quick sweep's (4 workloads x 11
+    # policies = 44 blocks) and the full sweep's (15 x 11 = 165)
+    quick = _event_timing(REG.QUICK_WORKLOADS)
+    full = _event_timing(WL.WORKLOAD_NAMES)
+    # the plain loop on the quick bucket cut to 1 instruction (768 request
+    # steps): at paper scale (49,152) it would take minutes
+    cut = _event_timing(REG.QUICK_WORKLOADS, n_instr=1)
+    b = cut.pop("bucket")
+    t0 = time.perf_counter()
+    EV.event_loop(b, n_warps=48, lanes=16, prm=prm)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    quick.pop("bucket"), full.pop("bucket")
+    return dict(cases=cases, request_steps=steps, max_abs_err=0.0,
+                grid=EVENT_GRID, cut=dict(cases=EVENT_CUT,
+                                          why="plain loop ~5 ms a step"),
+                plans=plans, ms=quick["ms"], device_ms=quick["device_ms"],
+                bytes=quick["bytes"], ops=quick["ops"],
+                chain_bound_ms=chain_bound_ms(quick["steps_per_block"]),
+                plain_ms=plain_ms, plain_shape=dict(I=1, W=48, L=16,
+                                                    blocks=cut["blocks"]),
+                plain_ms_per_step=plain_ms / cut["steps_per_block"],
+                quick=quick, full=dict(
+                    full, chain_bound_ms=chain_bound_ms(
+                        full["steps_per_block"])))
+
+
+def reset_event_count() -> None:
+    EVL.EVENT_LOOP.launches = 0
+
+
+def phase_fig7() -> dict:
+    """fig7_performance on the quick workloads through repro_torch.api on
+    the card: the goldens within 1e-6, the paper's ordering, one
+    event-loop launch per bucket; then the full PAPER_FIG7 experiment."""
+    PF._CACHE.clear()
+    PF._OFF_SWEEP_CACHE.clear()
+    torch.cuda.synchronize()
+    reset_event_count()
+    t0 = time.perf_counter()
+    rows, derived = PF.fig7_performance(REG.QUICK_WORKLOADS, device=DEV)
+    wall = time.perf_counter() - t0
+    launches = EVL.EVENT_LOOP.launches
+    check(launches == len(REG.QUICK_WORKLOADS),
+          f"fig7: {launches} event_loop launches for "
+          f"{len(REG.QUICK_WORKLOADS)} buckets")
+    check(set(derived) == set(GOLDEN_FIG7_DERIVED), f"fig7 keys {derived}")
+    for k, want in GOLDEN_FIG7_DERIVED.items():
+        check(abs(derived[k] - want) <= 1e-6,
+              f"fig7 {k}: {derived[k]!r} vs golden {want}")
+    bfs = {r["policy"]: r["speedup"] for r in rows
+           if r["workload"] == "BFS" and r["policy"] in GOLDEN_FIG7_BFS}
+    for k, want in GOLDEN_FIG7_BFS.items():
+        check(abs(bfs[k] - want) <= 1e-6,
+              f"fig7 BFS {k}: {bfs[k]!r} vs golden {want}")
+    h = {k.split("[")[1].rstrip("]"): v for k, v in derived.items()
+         if k.startswith("hmean_speedup[")}
+    check(h["MeDiC"] > h["WByp"] > h["PC-Byp"] > h["Baseline"]
+          and h["MeDiC"] > h["PCAL"] and h["MeDiC"] > h["EAF"]
+          and derived["medic_vs_best_prior"] > 1.1, f"fig7 ordering {h}")
+    # the full sweep: 15 workloads x 11 policies in one bucket
+    exp = REG.PAPER_FIG7.with_(device=DEV)
+    reset_event_count()
+    t0 = time.perf_counter()
+    rs = exp.run()
+    full_wall = time.perf_counter() - t0
+    full_launches = EVL.EVENT_LOOP.launches
+    check(full_launches == 1 and exp.compile().n_calls == 1,
+          f"PAPER_FIG7: {full_launches} launches")
+    sp = rs.speedup_over("Baseline")
+    for wl in REG.QUICK_WORKLOADS:     # the same simulations as above
+        for r in rows:
+            if r["workload"] == wl and r["policy"] in sp[wl]:
+                check(round(sp[wl][r["policy"]], 4) == r["speedup"],
+                      f"PAPER_FIG7 {wl} {r['policy']} != fig7 quick")
+    hmean = {p: float(len(sp) / sum(1.0 / sp[wl][p] for wl in sp))
+             for p in rs.policies}
+    hmean["Rand(ideal)"] = float(len(sp) / sum(
+        1.0 / max(sp[wl][f"Rand({q:.2f})"] for q in (0.25, 0.5, 0.75))
+        for wl in sp))
+    return dict(derived=derived, bfs=bfs, wall_s=wall, launches=launches,
+                paper_fig7=dict(wall_s=full_wall, launches=full_launches,
+                                hmean_speedup={k: round(v, 4)
+                                               for k, v in hmean.items()},
+                                medic_vs_best_prior=round(
+                                    hmean["MeDiC"] / max(
+                                        hmean["PCAL"], hmean["EAF"],
+                                        hmean["PC-Byp"]), 4)))
+
+
+def phase_wave1() -> dict:
+    """BP at paper scale under Baseline and MeDiC: the wavefront engine
+    with waves of one warp equals the event engine on the card, at the
+    reference's tolerance (rtol = atol = 1e-5)."""
+    tr = WL.generate(WL.WORKLOADS["BP"], 0)
+    pols = (BL.BASELINE, BL.MEDIC)
+    _, w, l = tr["lines"].shape
+    kw = dict(n_warps=w, lanes=l, prm=SimParams(), device=DEV)
+    t0 = time.perf_counter()
+    ev = simulate_sweep(tr["lines"], tr["pcs"], tr["compute_gap"], pols,
+                        engine="event", **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    wf = simulate_sweep(tr["lines"], tr["pcs"], tr["compute_gap"], pols,
+                        engine="wavefront", wave_size=1, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    worst = 0.0
+    for k in ev:
+        a, b = ev[k].double().cpu(), wf[k].double().cpu()
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5,
+                                   msg=f"wave1 {k}")
+        worst = max(worst, float((a - b).abs().max()))
+    return dict(event_s=t1 - t0, wavefront_s=t2 - t1, max_abs_err=worst,
+                ipc={p.name: float(v) for p, v in zip(pols, ev["ipc"].cpu())})
+
+
+def phase_api() -> dict:
+    """registry.STRESS through repro_torch.api on the card (wavefront,
+    both kernels once a wave), then the phased goldens through
+    Experiment.run."""
+    exp = REG.STRESS.with_(device=DEV)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rs = exp.run()
+    wall = time.perf_counter() - t0
+    c = counts()
+    check(c["waves"] > 0 and c["wave_queue"] == c["waves"]
+          and c["wave_cache"] == c["waves"], f"STRESS launches {c}")
+    names = list(rs.policies)
+    scen = {}
+    for sc in exp.scenarios:
+        m = rs.get(scenario=sc.name)
+        ipc = np.asarray(m["ipc"], dtype=float)
+        check(bool(np.isfinite(ipc).all() and (ipc > 0).all()),
+              f"STRESS {sc.name} ipc {ipc}")
+        tr = sc.materialize()
+        requests = int((tr["lines"] >= 0).sum()) * len(names)
+        order = [names[i] for i in np.argsort(-ipc)]
+        scen[sc.name] = dict(
+            ipc=dict(zip(names, ipc.tolist())),
+            medic_rank=order.index("MeDiC") + 1, call_wall_s=rs.wall_of(
+                sc.name), requests=requests)
+    for call in exp.compile().calls:     # requests/s of each call
+        names_c = [s.name for s in call.scenarios]
+        req = sum(scen[n]["requests"] for n in names_c)
+        for n in names_c:
+            scen[n]["call_requests_per_s"] = req / scen[n]["call_wall_s"]
+    phased = {}
+    for exp_p, golden in (
+            (REG.phased(("PHASED256",)), GOLDEN_PHASED256_IPC),
+            (REG.recover(("PHASED_RECOVER256",)), GOLDEN_RECOVER256_IPC)):
+        reset_counts()
+        rp = exp_p.with_(device=DEV).run()
+        cp = counts()
+        check(cp["waves"] > 0 and cp["wave_queue"] == cp["waves"]
+              and cp["wave_cache"] == cp["waves"],
+              f"{exp_p.name} launches {cp}")
+        name = exp_p.scenarios[0].name
+        ipc = {p: rp.value("ipc", scenario=name, policy=p) for p in golden}
+        for p, want in golden.items():
+            check(abs(ipc[p] - want) <= 1e-6,
+                  f"{name} {p} through the API: {ipc[p]!r} vs {want}")
+        phased[name] = dict(ipc=ipc, wall_s=rp.wall_s, launches=cp)
+    return dict(stress=dict(wall_s=wall, launches=c, n_calls=len(
+        rs.call_walls()), scenarios=scen), phased=phased)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the serving path's kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 #: the reference's kernel tolerance (tests/test_kernels.py:16)
@@ -990,7 +1377,7 @@ def _flash_attention_hybrid(gen, dev, s: int = 3072, window: int = 2048
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the serving path
+# phase 12: the serving path
 # ---------------------------------------------------------------------------
 
 SERVING_KERNELS = {"medic_gather": GATHER.MEDIC_GATHER,
@@ -1083,7 +1470,7 @@ def phase_serving(cfg=None, dev=DEV, rerun_steps: int = 96) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: where a full-width decode step and the serving run spend time
+# phase 13: where a full-width decode step and the serving run spend time
 # ---------------------------------------------------------------------------
 
 def _device_us(e) -> float:
@@ -1193,7 +1580,7 @@ def phase_serving_profile(cfg=None, dev=DEV, engine_steps: int = 500) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the hybrid and ssm paths' kernels against their plain versions
+# phase 14: the hybrid and ssm paths' kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 #: (B, S, W, a_lo, a_hi): odd S and W, one step, a ~ 1, W % 4 == 0 off a
@@ -1349,7 +1736,7 @@ def phase_mlstm(dev=DEV) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the hybrid and ssm serve paths at full width
+# phase 15: the hybrid and ssm serve paths at full width
 # ---------------------------------------------------------------------------
 
 RECURRENT_KERNELS = {"rg_lru": RGLRU.RG_LRU, "mlstm": MLSTM.MLSTM,
@@ -1579,6 +1966,8 @@ def main() -> int:
     for phase, fn in (("wave_queue", phase_wave_queue),
                       ("wave_cache", phase_wave_cache),
                       ("golden", phase_golden), ("scale", phase_scale),
+                      ("event", phase_event), ("fig7", phase_fig7),
+                      ("wave1", phase_wave1), ("api", phase_api),
                       ("medic_gather", phase_medic_gather),
                       ("decode_attention", phase_decode_attention),
                       ("flash_attention", phase_flash_attention),
@@ -1596,6 +1985,10 @@ def main() -> int:
     # attention kernels also in the hybrid run, rg_lru in the hybrid run,
     # mlstm in the ssm run (each run counted from 0)
     paths = {"HAMMER2K": results["scale"]["HAMMER2K"]["launches"],
+             "STRESS": results["api"]["stress"]["launches"],
+             "fig7_quick": {"event_loop": results["fig7"]["launches"]},
+             "paper_fig7": {"event_loop":
+                            results["fig7"]["paper_fig7"]["launches"]},
              "serving": results["serving"]["launches"],
              "hybrid_serve": results["hybrid_serve"]["launches"],
              "ssm_serve": results["ssm_serve"]["launches"]}
@@ -1636,8 +2029,31 @@ def main() -> int:
             if "n_split" in h:
                 row["hybrid"]["n_split"] = h["n_split"]
         rows.append(row)
-    check(set(KERNELS) == {r["name"] for r in rows} and not TO_PORT,
-          "a Pallas kernel of the reference has no row")
+    # the port-side event loop: its bound is the dependent chain of its
+    # request steps (chain_bound_ms), far above the byte and operation
+    # bounds; no single PyTorch call computes the loop
+    ev = results["event"]
+    by_path = {p: c["event_loop"] for p, c in paths.items()
+               if c.get("event_loop")}
+    check(sum(by_path.values()) > 0, "event_loop never launched on fig7")
+    rows.append(dict(
+        name="event_loop", **PORT_KERNELS["event_loop"],
+        launches=sum(by_path.values()), max_abs_err=ev["max_abs_err"],
+        ms=ev["ms"], device_ms=ev["device_ms"], plain_ms=ev["plain_ms"],
+        **bound(ev, F32_OPS_PER_S), library_ms=None,
+        library_device_ms=None, launches_by_path=by_path,
+        chain_bound_ms=ev["chain_bound_ms"],
+        chain=dict(accesses_a_step=CHAIN_ACCESSES,
+                   smem_latency_cycles=SMEM_LATENCY_CYCLES,
+                   steps_a_block=ev["quick"]["steps_per_block"],
+                   sm_clock_hz=sm_clock_hz()),
+        blocks=ev["quick"]["blocks"], plain_shape=ev["plain_shape"],
+        full=dict(blocks=ev["full"]["blocks"], ms=ev["full"]["ms"],
+                  device_ms=ev["full"]["device_ms"],
+                  chain_bound_ms=ev["full"]["chain_bound_ms"],
+                  **bound(ev["full"], F32_OPS_PER_S))))
+    check(set(KERNELS) | set(PORT_KERNELS) == {r["name"] for r in rows}
+          and not TO_PORT, "a Pallas kernel of the reference has no row")
     print(json.dumps({"kernels": rows, "to_port": TO_PORT}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,221 @@
+"""Experiment: scenarios × policies × engine, compiled to a minimal Plan
+(the port of ``repro.api.experiment``).
+
+    exp  = Experiment("fig7", scenarios, policies, engine="event")
+    plan = exp.compile()     # inspectable, no traces materialized yet
+    rs   = plan.execute()    # == exp.run()
+
+The plan compiler buckets scenarios by trace shape (I, W, L): every
+scenario in a bucket rides the seed-stack axis of ONE ``simulate_sweep``
+call (policies on the leading axis), so the whole experiment runs in
+exactly one call per (shape, engine) bucket — on the event engine one
+launch of the event-loop kernel per bucket. ``n_executables`` counts the
+distinct call signatures (shape, flat batch size, policy count, engine,
+wave_size, backends, SimParams), as the reference counts its jit
+executables.
+
+Runs go to the card unless ``device`` says otherwise (``device="cpu"``
+runs the plain PyTorch versions). A block's ``wall_s`` ends when its
+outputs are numpy arrays on the host, which waits for the card.
+``mesh``/``mesh_axes`` wait for the port of sharded sweeps (ROADMAP A8)
+and ``engine="serving"`` for the serving simulator (A7): both raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.api.results import ResultBlock, ResultSet
+from repro_torch.api.scenario import Scenario, Shape
+from repro_torch.core.engine import (SimParams, simulate_sweep,
+                                     validate_engine_args)
+from repro_torch.policy import Policy
+
+_TRACE_KEYS = ("lines", "pcs", "compute_gap", "archetype", "oracle_wtype")
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanCall:
+    """One emitted ``simulate_sweep`` call: a (shape, engine) bucket."""
+    shape: Shape                       # (n_instr, n_warps, lines_per_instr)
+    engine: str
+    wave_size: Optional[int]
+    scan_backend: str
+    cache_backend: str
+    scenarios: Tuple[Scenario, ...]    # seed blocks stack in this order
+
+    @property
+    def flat(self) -> int:
+        """Stacked trace count of the call (sum of scenario seed counts)."""
+        return sum(s.n_seeds for s in self.scenarios)
+
+    def compile_key(self, n_policies: int, prm: SimParams) -> tuple:
+        """The call's signature: two calls with equal keys run the same
+        shapes and knobs (the reference's jit compile key, without its
+        mesh fields)."""
+        return (self.shape, self.flat, n_policies, self.engine,
+                self.wave_size, self.scan_backend, self.cache_backend, prm)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Compiled experiment: the minimal list of calls to make."""
+    experiment: "Experiment"
+    calls: Tuple[PlanCall, ...]
+
+    @property
+    def n_calls(self) -> int:
+        """Calls to make — one per (trace-shape, engine) bucket, so this
+        IS the bucket count."""
+        return len(self.calls)
+
+    @property
+    def n_executables(self) -> int:
+        """Distinct call signatures (``PlanCall.compile_key``)."""
+        exp = self.experiment
+        return len({c.compile_key(len(exp.policies), exp.prm)
+                    for c in self.calls})
+
+    def describe(self) -> str:
+        exp = self.experiment
+        lines = [f"plan[{exp.name}]: {len(exp.scenarios)} scenarios x "
+                 f"{len(exp.policies)} policies -> {self.n_calls} call(s), "
+                 f"{self.n_executables} executable(s)"]
+        for c in self.calls:
+            i, w, l = c.shape
+            names = ", ".join(f"{s.name}x{s.n_seeds}" for s in c.scenarios)
+            lines.append(f"  [{c.engine}] shape I={i} W={w} L={l} "
+                         f"flat={c.flat}: {names}")
+        return "\n".join(lines)
+
+    def execute(self, keep_traces: bool = False) -> ResultSet:
+        """Materialize traces and run every planned call."""
+        exp = self.experiment
+        blocks: List[ResultBlock] = []
+        for call in self.calls:
+            n_instr, n_warps, lanes = call.shape
+            parts = [s.materialize() for s in call.scenarios]
+            # a bucket may mix constant-intensity scenarios (scalar gap
+            # per seed, [S]) with phased ones ([S, I]): broadcast the
+            # scalars so the stacked axis is uniform
+            if any(p["compute_gap"].ndim == 2 for p in parts):
+                for p in parts:
+                    g = p["compute_gap"]
+                    if g.ndim == 1:
+                        p["compute_gap"] = np.broadcast_to(
+                            g[:, None], (g.shape[0], n_instr))
+            tr = {k: np.concatenate([p[k] for p in parts])
+                  for k in _TRACE_KEYS}
+            t0 = time.perf_counter()
+            out = simulate_sweep(
+                tr["lines"], tr["pcs"], tr["compute_gap"], exp.policies,
+                n_warps=n_warps, lanes=lanes, prm=exp.prm,
+                engine=call.engine, wave_size=call.wave_size,
+                scan_backend=call.scan_backend,
+                cache_backend=call.cache_backend,
+                oracle_types=tr["oracle_wtype"], device=exp.device)
+            # [P, F, ...] on the host: the copy waits for the card
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            wall = time.perf_counter() - t0
+            entries = tuple((s.name, seed) for s in call.scenarios
+                            for seed in s.seeds)
+            traces = None
+            if keep_traces:
+                traces = tuple(
+                    {k: tr[k][f] for k in _TRACE_KEYS}
+                    for f in range(call.flat))
+            blocks.append(ResultBlock(entries, out, wall, traces))
+        meta = {"experiment": exp.name, "engine": exp.engine,
+                "n_calls": self.n_calls,
+                "n_executables": self.n_executables}
+        return ResultSet([p.name for p in exp.policies], blocks, meta)
+
+
+@dataclasses.dataclass(frozen=True)
+class Experiment:
+    """Scenarios × policies × engine options — the one front door.
+
+    ``run()`` compiles the plan and executes it; ``compile()`` exposes
+    the plan for inspection (bucketing, call count) without
+    materializing any traces. ``device`` is where the simulations run:
+    ``None`` is the card (raising without one), ``"cpu"`` the plain
+    PyTorch versions.
+    """
+    name: str
+    scenarios: Tuple[Scenario, ...]
+    policies: Tuple[Policy, ...]
+    engine: str = "event"
+    wave_size: Optional[int] = None
+    #: wavefront timing-pass backend (repro_torch.kernels.wavefront_scan);
+    #: "auto" = the CUDA kernel for the card, the plain version on the CPU
+    scan_backend: str = "auto"
+    #: wavefront cache-pass backend (repro_torch.kernels.cache_pass)
+    cache_backend: str = "auto"
+    #: sharded sweeps are not ported (ROADMAP A8): must stay None
+    mesh: Optional[object] = None
+    mesh_axes: Optional[Tuple] = None
+    prm: SimParams = SimParams()
+    #: where the simulations run (None: the card)
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "scenarios", tuple(self.scenarios))
+        object.__setattr__(self, "policies", tuple(self.policies))
+        if not self.scenarios:
+            raise ValueError(f"experiment {self.name!r}: needs >= 1 "
+                             "scenario")
+        if not self.policies:
+            raise ValueError(f"experiment {self.name!r}: needs >= 1 policy")
+        names = [s.name for s in self.scenarios]
+        dupes = {n for n in names if names.count(n) > 1}
+        if dupes:
+            raise ValueError(f"experiment {self.name!r}: duplicate scenario "
+                             f"names {sorted(dupes)} — results would "
+                             "collide; pass name= to disambiguate")
+        pnames = [p.name for p in self.policies]
+        pdupes = {n for n in pnames if pnames.count(n) > 1}
+        if pdupes:
+            raise ValueError(f"experiment {self.name!r}: duplicate policy "
+                             f"names {sorted(pdupes)}")
+        if self.mesh is not None or self.mesh_axes is not None:
+            raise ValueError(
+                f"experiment {self.name!r}: mesh/mesh_axes (sharded "
+                "sweeps) are not ported to repro_torch yet (ROADMAP A8)")
+        if self.engine == "serving":
+            raise ValueError(
+                f"experiment {self.name!r}: engine='serving' needs the "
+                "open-loop serving simulator, not ported to repro_torch "
+                "yet (ROADMAP A7)")
+        validate_engine_args(self.engine, self.wave_size,
+                             self.scan_backend, self.cache_backend)
+
+    def compile(self) -> Plan:
+        """Bucket scenarios by trace shape; one PlanCall per bucket."""
+        buckets: Dict[Shape, List[Scenario]] = {}
+        for s in self.scenarios:
+            buckets.setdefault(s.shape, []).append(s)
+        return Plan(self, tuple(
+            PlanCall(shape, self.engine, self.wave_size, self.scan_backend,
+                     self.cache_backend, tuple(scens))
+            for shape, scens in buckets.items()))
+
+    def run(self, keep_traces: bool = False) -> ResultSet:
+        return self.compile().execute(keep_traces=keep_traces)
+
+    # convenience for quick derivative experiments
+    def with_(self, **changes) -> "Experiment":
+        return dataclasses.replace(self, **changes)
+
+
+def run(scenarios: Sequence[Scenario], policies: Sequence[Policy],
+        engine: str = "event", wave_size: Optional[int] = None,
+        scan_backend: str = "auto", cache_backend: str = "auto",
+        prm: SimParams = SimParams(), name: str = "adhoc",
+        keep_traces: bool = False, device=None) -> ResultSet:
+    """One-shot helper: ``api.run(scenarios, policies)`` -> ResultSet."""
+    return Experiment(name, tuple(scenarios), tuple(policies), engine,
+                      wave_size, scan_backend, cache_backend, prm=prm,
+                      device=device).run(keep_traces=keep_traces)

@@ -1,6 +1,9 @@
 """Simulation engines behind one API, in torch (port of
 ``repro.core.engine``).
 
+  * ``engine/event.py``     — the exact discrete-event loop (one
+    earliest-ready warp per step; O(I·W·L) sequential), whose loop runs
+    as one hand-written CUDA kernel on the card;
   * ``engine/wavefront.py`` — the batched round-lockstep event loop,
     whose two per-wave passes run as hand-written CUDA kernels on the
     card;
@@ -11,11 +14,12 @@
 ``device=``. They run on the card: the default device is ``"cuda"``, and
 without a CUDA device they raise unless the caller passes
 ``device="cpu"`` (where the plain PyTorch versions of the kernels run).
-Only ``engine="wavefront"`` is ported; the exact ``event`` engine is the
-next slice (ROADMAP A3), so the reference's default ``engine="event"``
-raises here. The reference vmaps over policies and seeds; the port runs
-those as a Python loop of independent simulations and stacks the outputs
-as ``[P]`` or ``[P, S]``. ``mesh``/``*_axes`` are not ported (ROADMAP A8).
+The default engine is ``"event"``, as in the reference. The reference
+vmaps over policies and seeds; the event engine runs all P·S simulations
+of a call in one loop (one kernel launch on the card), the wavefront
+engine as a Python loop of independent simulations; both stack the
+outputs as ``[P]`` or ``[P, S]``. ``mesh``/``*_axes`` are not ported
+(ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.core.engine import event as _event
 from repro_torch.core.engine import wavefront as _wavefront
 from repro_torch.core.engine.state import (N_QBINS, SimParams, SimState,
                                            init_state, state_from_numpy)
@@ -36,31 +41,37 @@ ENGINES = ("event", "wavefront")
 def validate_engine_args(engine: str, wave_size: Optional[int] = None,
                          scan_backend: str = "auto",
                          cache_backend: str = "auto") -> None:
-    """Front-door validation shared by ``simulate``/``simulate_sweep``.
+    """Front-door validation shared by ``simulate``/``simulate_sweep`` and
+    the declarative ``repro_torch.api`` layer.
 
-    Raises ``ValueError`` for an unknown or not-yet-ported engine, a bad
-    ``wave_size``, and an unknown ``scan_backend``/``cache_backend``
-    (allowed: ``("auto", "ref", "cuda")``), before any work starts."""
+    Raises ``ValueError`` for an unknown engine, a bad ``wave_size``, an
+    unknown ``scan_backend``/``cache_backend`` (allowed: ``("auto",
+    "ref", "cuda")``), and — instead of silently ignoring it — for a
+    ``wave_size`` or a non-default backend passed to an engine that does
+    not consume one (only ``"wavefront"`` does), before any work starts."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
-    if engine == "event":
-        raise ValueError(
-            "engine='event' is not ported to repro_torch yet (ROADMAP A3, "
-            "the next slice); use engine='wavefront'")
     if wave_size is not None:
+        if engine != "wavefront":
+            raise ValueError(
+                f"wave_size={wave_size!r} is only meaningful with "
+                f"engine='wavefront'; engine={engine!r} would silently "
+                f"ignore it")
         if wave_size != int(wave_size):
             raise ValueError(
                 f"wave_size must be an integer, got {wave_size!r}")
         if wave_size < 1:
             raise ValueError(f"wave_size must be >= 1, got {wave_size!r}")
-    if scan_backend not in SCAN_BACKENDS:
-        raise ValueError(
-            f"unknown scan_backend {scan_backend!r}; choose from "
-            f"{SCAN_BACKENDS}")
-    if cache_backend not in CACHE_BACKENDS:
-        raise ValueError(
-            f"unknown cache_backend {cache_backend!r}; choose from "
-            f"{CACHE_BACKENDS}")
+    for kind, backend, allowed in (("scan", scan_backend, SCAN_BACKENDS),
+                                   ("cache", cache_backend, CACHE_BACKENDS)):
+        if backend not in allowed:
+            raise ValueError(
+                f"unknown {kind}_backend {backend!r}; choose from {allowed}")
+        if backend != "auto" and engine != "wavefront":
+            raise ValueError(
+                f"{kind}_backend={backend!r} is only meaningful with "
+                f"engine='wavefront'; engine={engine!r} would silently "
+                f"ignore it")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -131,7 +142,9 @@ def simulate_sweep(trace_lines, trace_pcs, compute_gap,
     trace_lines may be [I, W, L] (outputs get a leading axis P) or
     seed-stacked [S, I, W, L] (outputs get leading axes [P, S]);
     trace_pcs/compute_gap/oracle_types follow suit (compute_gap is [S] or
-    [S, I] for seed-stacked traces).
+    [S, I] for seed-stacked traces). On the event engine all P·S
+    simulations run in one loop: one launch of the event-loop kernel on
+    the card.
     """
     validate_engine_args(engine, wave_size, scan_backend, cache_backend)
     dev = resolve_device(device)
@@ -141,11 +154,32 @@ def simulate_sweep(trace_lines, trace_pcs, compute_gap,
     pcs = _as(trace_pcs, torch.int32, dev)
     gap = _as(compute_gap, torch.float32, dev)
     orc = _as(oracle, torch.int32, dev)
-    kw = dict(n_warps=n_warps, lanes=lanes, prm=prm, wave_size=wave_size,
-              scan_backend=scan_backend, cache_backend=cache_backend)
+    seeded = lines.ndim == 4
+    if engine == "event":
+        if not seeded:      # one trace: a seed stack of one
+            lines, pcs, gap, orc = (x.unsqueeze(0) for x in
+                                    (lines, pcs, gap, orc))
+        out = _event.simulate_core(lines, pcs, gap, orc, pa,
+                                   n_warps=n_warps, lanes=lanes, prm=prm)
+        lead = (len(policies), lines.shape[0]) if seeded \
+            else (len(policies),)
+        out = {k: v.reshape(*lead, *v.shape[1:]) for k, v in out.items()}
+    else:
+        out = _wavefront_sweep(lines, pcs, gap, orc, pa, len(policies),
+                               n_warps=n_warps, lanes=lanes, prm=prm,
+                               wave_size=wave_size,
+                               scan_backend=scan_backend,
+                               cache_backend=cache_backend)
+    # metric names in sorted order, as the reference's jitted outputs
+    return {k: out[k] for k in sorted(out)}
+
+
+def _wavefront_sweep(lines, pcs, gap, orc, pa, n_policies: int,
+                     **kw) -> Dict[str, Any]:
+    """One wavefront simulation per (policy, seed), stacked."""
     seeded = lines.ndim == 4
     rows = []
-    for p in range(len(policies)):
+    for p in range(n_policies):
         pa_p = policy_row(pa, p)
         if seeded:
             rows.append(_stack([_wavefront.simulate_core(

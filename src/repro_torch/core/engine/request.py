@@ -1,4 +1,4 @@
-"""Per-request math of the wavefront engine, in torch.
+"""Per-request math of the event and wavefront engines, in torch.
 
 The index helpers, the bypass decision on gathered inputs, the insertion
 rank, the DRAM row-buffer timing split, the queue-delay binning and the
@@ -84,6 +84,23 @@ def bypass_decision_vals(warp_type_w, accesses_w, token_w, st: SimState,
     byp, wtype = bypass_decision_core(
         warp_type_w, accesses_w, token_w, st.pc_hits[pidx],
         st.pc_acc[pidx], st.pc_req[pidx], addr, valid, prm, pa, oracle_wt)
+    return byp, wtype, pidx
+
+
+def bypass_decision(st: SimState, w, addr, pc, valid, prm: SimParams,
+                    pa: PolicyArrays, tokens, oracle_wt):
+    """Returns ``(byp, wtype, pidx)`` for one request of each of N
+    simulations: ``st`` and ``pa`` carry a leading [N] axis, ``w``,
+    ``addr``, ``pc``, ``valid`` and ``oracle_wt`` are [N] and ``tokens``
+    is [N, W]. The per-warp classifier inputs and the PC-table counters
+    are gathered here, one row per simulation (the event engine's form
+    of the reference's ``bypass_decision``)."""
+    sim = torch.arange(w.shape[0], device=w.device)
+    pidx = pc_index(pc, prm).long()
+    byp, wtype = bypass_decision_core(
+        st.clf.warp_type[sim, w], st.clf.accesses[sim, w], tokens[sim, w],
+        st.pc_hits[sim, pidx], st.pc_acc[sim, pidx], st.pc_req[sim, pidx],
+        addr, valid, prm, pa, oracle_wt)
     return byp, wtype, pidx
 
 

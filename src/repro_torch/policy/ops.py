@@ -2,7 +2,9 @@
 
 Every function computes the candidate decision of *each* mechanism on the
 menu and selects the active one with a one-hot dot product against the
-``PolicyArrays`` select weights — no Python dispatch on the policy.
+``PolicyArrays`` select weights — no Python dispatch on the policy. A
+policy row may carry a leading simulation axis (the event engine's
+[N] batch): every op then works elementwise per simulation.
 
 ``hash_index`` is the reference's uint32 multiplicative hash. Torch's
 uint32 support is partial, so it runs in int64 on the low 32 bits, with
@@ -48,8 +50,13 @@ def hash_index(x: torch.Tensor, salt: int, mod: int) -> torch.Tensor:
 
 def _select(sel: torch.Tensor, cand) -> torch.Tensor:
     """``tensordot(sel, stack(cand), axes=1)`` in float32 (the candidates
-    share one dtype)."""
-    return torch.tensordot(sel, torch.stack(cand).to(F32), dims=1)
+    share one dtype). A stacked ``sel`` [N, k] (one policy row per
+    simulation) selects elementwise from candidates [N]: one-hot weights
+    times 0/1 or small-integer candidates, so the sum is exact in any
+    order."""
+    if sel.ndim == 1:
+        return torch.tensordot(sel, torch.stack(cand).to(F32), dims=1)
+    return (sel * torch.stack(cand, -1).to(F32)).sum(-1)
 
 
 def bypass_decision(pa: PolicyArrays, *, wtype, probe, token_bit,
@@ -91,7 +98,7 @@ def is_high_priority(pa: PolicyArrays, wtype):
 def select_label(pa: PolicyArrays, clf_wtype, oracle_wtype):
     """① Which warp-type label drives decisions ②③④: the oracle label
     when ``label_sel`` picks "oracle", else the classifier's."""
-    return torch.where(pa.label_sel[2] > 0.5, oracle_wtype, clf_wtype)
+    return torch.where(pa.label_sel[..., 2] > 0.5, oracle_wtype, clf_wtype)
 
 
 def reclass_interval(pa: PolicyArrays, default):
@@ -115,7 +122,7 @@ _NO_WINDOW_CAP = 1 << 30
 def reclass_max_windows(pa: PolicyArrays):
     """① How many sampling windows may update a warp's label: 1 for the
     stale (classify-once) mode, unbounded otherwise."""
-    return torch.where(pa.label_sel[1] > 0.5, 1, _NO_WINDOW_CAP).to(I32)
+    return torch.where(pa.label_sel[..., 1] > 0.5, 1, _NO_WINDOW_CAP).to(I32)
 
 
 def pcal_tokens(pa: PolicyArrays, n_warps: int):

@@ -11,7 +11,8 @@ equal; the float reductions may differ only in summation order
 
 The phased labeling-ladder cases are in tests/test_torch_engine_phased.py.
 Also here: the facade's error contract, and that nothing under
-``src/repro_torch/`` nor ``chip_smoke.py`` imports JAX or the reference.
+``src/repro_torch/``, no ``examples/torch_*.py`` and not ``chip_smoke.py``
+imports JAX or the reference.
 """
 import ast
 import dataclasses
@@ -132,10 +133,16 @@ def test_default_device_is_the_card(monkeypatch):
 
 def test_engine_and_backend_errors():
     args, kw = _tiny_args()
-    with pytest.raises(ValueError, match="A3"):
-        E.simulate_sweep(*args, (BL.MEDIC,), device="cpu", **kw)
-    with pytest.raises(ValueError, match="A3"):
-        E.simulate(*args, pol=BL.MEDIC, engine="event", device="cpu", **kw)
+    # the reference's event contract: the event engine takes no wave size
+    # and no non-default wavefront backend
+    with pytest.raises(ValueError, match="wave_size"):
+        E.simulate_sweep(*args, (BL.MEDIC,), wave_size=2, device="cpu",
+                         **kw)
+    with pytest.raises(ValueError, match="scan_backend"):
+        E.simulate(*args, pol=BL.MEDIC, engine="event", scan_backend="ref",
+                   device="cpu", **kw)
+    with pytest.raises(ValueError, match="cache_backend"):
+        E.validate_engine_args("event", cache_backend="cuda")
     with pytest.raises(ValueError, match="unknown engine"):
         E.validate_engine_args("scan")
     for bad in ("fused", "pallas", "triton"):
@@ -164,6 +171,7 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     for path in files:

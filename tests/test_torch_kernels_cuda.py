@@ -23,6 +23,7 @@ from repro_torch.core.engine import SimParams, simulate_sweep  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cache_pass import ops as CPASS  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DEC  # noqa: E402
+from repro_torch.kernels.event_loop import ops as EVL  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FLASH  # noqa: E402
 from repro_torch.kernels.medic_gather import ops as GATHER  # noqa: E402
 from repro_torch.kernels.mlstm import ops as MLSTM  # noqa: E402
@@ -34,7 +35,8 @@ WAVEFRONT_KERNELS = {"wave_queue": WSCAN.WAVE_QUEUE,
 KERNELS = {**WAVEFRONT_KERNELS, "medic_gather": GATHER.MEDIC_GATHER,
            "decode_attention": DEC.DECODE_ATTENTION,
            "flash_attention": FLASH.FLASH_ATTENTION,
-           "rg_lru": RGLRU.RG_LRU, "mlstm": MLSTM.MLSTM}
+           "rg_lru": RGLRU.RG_LRU, "mlstm": MLSTM.MLSTM,
+           "event_loop": EVL.EVENT_LOOP}
 
 
 @pytest.fixture
@@ -172,11 +174,18 @@ def test_engine_kernels_match_plain_on_card(cuda_device):
 
 def test_chip_smoke_builds_and_reports_every_kernel():
     assert set(CS.SOURCES.values()) == set(KERNELS)
-    assert set(CS.SOURCES) == set(CS.KERNELS)
+    assert set(CS.SOURCES) == set(CS.KERNELS) | set(CS.PORT_KERNELS)
     for row in CS.KERNELS.values():
         assert (ROOT / row["source"]).exists()
         path, line = row["replaces"].split(":")
         assert "pallas_call" in (ROOT / path).read_text() and int(line) > 0
+    # port-side kernels replace a loop of the reference, not a Pallas call
+    for row in CS.PORT_KERNELS.values():
+        assert (ROOT / row["source"]).exists() and row["pallas"] is None
+        path, line = row["replaces"].split(":")
+        src = (ROOT / path).read_text().splitlines()
+        assert "pallas_call" not in "\n".join(src)
+        assert src[int(line) - 1].startswith("def ")
 
 
 @pytest.mark.cuda
@@ -397,3 +406,24 @@ def test_flash_attention_bf16_groups_on_card(cuda_device, g):
                                                window=window)
         CS._close(out, plain, torch.bfloat16,
                   f"flash G={g} S={s} D={d} window={window}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,i,l", [(1, 8, 16), (48, 1, 16), (64, 8, 1)])
+def test_event_loop_kernel_bitwise_on_card(cuda_device, w, i, l):
+    """All four instances against the plain loop on the card, the fig7
+    policies plus the stale and oracle rungs, a per-instruction gap."""
+    both = [(None, None), (False, False), (True, False), (False, True)]
+    CS._event_both(CS.event_case(w, i, l), CS.EVENT_POLICIES, w, l,
+                   SimParams(), f"W{w} I{i} L{l}", both)
+
+
+@pytest.mark.cuda
+def test_event_engine_is_one_launch_per_sweep_on_card(cuda_device):
+    tr = WL.generate(WL.WORKLOADS["BFS"], 0)
+    before = EVL.EVENT_LOOP.launches
+    out = simulate_sweep(tr["lines"][:4], tr["pcs"][:4], tr["compute_gap"],
+                         (BL.BASELINE, BL.MEDIC), n_warps=48, lanes=16,
+                         prm=SimParams())
+    assert EVL.EVENT_LOOP.launches == before + 1
+    assert out["ipc"].device.type == "cuda" and out["ipc"].shape == (2,)
