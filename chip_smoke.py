@@ -74,6 +74,18 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      MeDiC for a few steps with the kernels and with their plain versions
      (backend="ref") in float32 at full width: snapshots equal, committed
      K/V caches within 2e-2;
+ 12b. serving_sim — the open-loop serving simulator (host numpy, as in
+     the reference): ``registry.PAPER_SERVING`` whole through
+     ``repro_torch.api`` (4 scenarios × 4 policies, two buckets) equal to
+     the reference's goldens (integers exactly, floats within 1e-12),
+     SERVE_POISSON2K at 2048 in flight with 4096 done in <= 1200 steps
+     under every policy, MeDiC's p99 no worse than Baseline's on
+     SERVE_BURSTY64, each bucket's wall and seconds a step; the two pool
+     backends equal on the cut SERVE_BURSTY64 under the 4 policies; and
+     the simulator on the serving A/B's request lists equal to the
+     full-width engines of phase 12 (every pool counter, the pinned
+     aggregates, every request's stamps; a request the engine never
+     admitted keeps enqueue_step 0 there, -1 in the simulator);
  13. serving_profile — where the time goes: a full-width decode step
      (host wall, device time per kernel from torch.profiler, kernels per
      step) and a 500-step MeDiC run split by engine method;
@@ -145,7 +157,8 @@ from repro_torch.kernels.wavefront_scan.ref import QueueCarry  # noqa: E402
 from repro_torch.policy import (ops as POL, stack_policies,  # noqa: E402
                                 to_arrays)
 from repro_torch.serving import engine as ENG  # noqa: E402
-from repro_torch.serving.pool import PoolConfig  # noqa: E402
+from repro_torch.serving import sim as SIM  # noqa: E402
+from repro_torch.serving.pool import POOL_POLICIES, PoolConfig  # noqa: E402
 from repro_torch.serving.request import (ServeWorkload,  # noqa: E402
                                          generate_requests)
 
@@ -1406,8 +1419,29 @@ def _snaps_equal(a: dict, b: dict) -> bool:
     return True
 
 
+#: what each engine of the A/B did, by policy: its requests (with their
+#: lifecycle stamps) and copies of its pool's counters, kept by
+#: ``phase_serving`` for ``phase_serving_sim``'s closed-loop check
+AB_ENGINES: dict = {}
+POOL_COUNTERS = ("fetches", "bypassed_blocks", "hits", "accesses",
+                 "seq_type", "evictions_by_type")
+
+
+class _KeptEngine(ENG.ServeEngine):
+    """``ServeEngine`` that, after a run, keeps its requests and copies of
+    its pool's counters in ``AB_ENGINES`` under its pool policy."""
+
+    def run(self, requests, max_steps: int = 2000):
+        snap = super().run(requests, max_steps=max_steps)
+        AB_ENGINES[self.pool.cfg.policy] = dict(
+            requests=requests, snapshot=snap,
+            pool={k: np.copy(getattr(self.pool, k)) for k in POOL_COUNTERS})
+        return snap
+
+
 def phase_serving(cfg=None, dev=DEV, rerun_steps: int = 96) -> dict:
-    """``run_ab`` at full width through the kernels, then MeDiC for
+    """``run_ab`` at full width through the kernels (its engines keep
+    their requests and pool counters in ``AB_ENGINES``), then MeDiC for
     ``rerun_steps`` steps with the kernels and with their plain versions
     (float32, so the comparison sees the kernels and not bf16 rounding
     compounding over 28 layers)."""
@@ -1415,11 +1449,15 @@ def phase_serving(cfg=None, dev=DEV, rerun_steps: int = 96) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_serving_counts()
+    AB_ENGINES.clear()
     t0 = time.perf_counter()
-    out = ENG.run_ab(cfg, SERVE_WL, SERVE_POOL, SERVE_ECFG, seed=0,
-                     device=dev)
+    with mock.patch.object(ENG, "ServeEngine", _KeptEngine):
+        out = ENG.run_ab(cfg, SERVE_WL, SERVE_POOL, SERVE_ECFG, seed=0,
+                         device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    check(sorted(AB_ENGINES) == sorted(PINNED_AB), "serving: the A/B's "
+          f"engines kept {sorted(AB_ENGINES)}")
     launches = serving_counts()
     eng = dataclasses.asdict(ENG.COUNTS)
     peak = torch.cuda.max_memory_allocated()
@@ -1467,6 +1505,225 @@ def phase_serving(cfg=None, dev=DEV, rerun_steps: int = 96) -> dict:
                                   max_abs_err_kv=kv_err,
                                   tokens_out=sk["tokens_out"],
                                   seconds=time.perf_counter() - t1))
+
+
+# ---------------------------------------------------------------------------
+# phase 12b: the open-loop serving simulator (host numpy) through the API,
+# and held against the card's engine
+# ---------------------------------------------------------------------------
+
+#: registry.PAPER_SERVING as the reference gives it (repro.api on the CPU,
+#: seed 0): per (scenario, policy) the integers SERVING_INTS, then the
+#: floats SERVING_FLOATS (shortest round-trip reprs)
+SERVING_INTS = ("completed", "steps", "tokens_out", "stall_steps",
+                "fetches", "bypassed_blocks", "max_concurrency")
+SERVING_FLOATS = ("p99_latency", "mean_latency", "hit_ratio", "goodput")
+GOLDEN_SERVING = {
+    ("SERVE_POISSON64", "Baseline"): (
+        192, 614, 6322, 26361, 36950, 0, 64,
+        367.8787659112108, 233.8816197820389,
+        0.3852171704343409, 10.296416938110749),
+    ("SERVE_POISSON64", "MeDiC"): (
+        192, 463, 6322, 14914, 21180, 11376, 64,
+        224.82904388624996, 114.17849478203895,
+        0.5930827202583887, 13.654427645788337),
+    ("SERVE_POISSON64", "MeDiC-stale"): (
+        192, 611, 6322, 26003, 36365, 170, 64,
+        363.0083522514977, 231.37641144870557,
+        0.40944402132520946, 10.346972176759412),
+    ("SERVE_POISSON64", "MeDiC-oracle"): (
+        192, 512, 6322, 8015, 26493, 26881, 60,
+        269.24009963850335, 74.16807811537227,
+        0.2934059521493873, 12.34765625),
+    ("SERVE_BURSTY64", "Baseline"): (
+        192, 596, 6059, 25872, 37847, 0, 64,
+        365.6402591936936, 233.52072315091291,
+        0.3692640910693598, 10.166107382550335),
+    ("SERVE_BURSTY64", "MeDiC"): (
+        192, 513, 6059, 14835, 23623, 13881, 64,
+        274.4618875494464, 127.35926481757961,
+        0.5485492735716416, 11.810916179337232),
+    ("SERVE_BURSTY64", "MeDiC-stale"): (
+        192, 596, 6059, 26066, 38135, 480, 64,
+        373.3619720935782, 236.32280648424626,
+        0.382437718756434, 10.166107382550335),
+    ("SERVE_BURSTY64", "MeDiC-oracle"): (
+        192, 496, 6059, 7864, 26276, 26752, 64,
+        276.4809213671334, 75.31238981757961,
+        0.2676076367902727, 12.215725806451612),
+    ("SERVE_DIURNAL64", "Baseline"): (
+        192, 603, 6062, 26546, 36910, 0, 64,
+        449.78257150094936, 257.10252327044947,
+        0.3382957393483709, 10.0530679933665),
+    ("SERVE_DIURNAL64", "MeDiC"): (
+        192, 477, 6062, 14952, 21520, 12208, 64,
+        298.2325715009494, 142.41502327044947,
+        0.6556418413173652, 12.70859538784067),
+    ("SERVE_DIURNAL64", "MeDiC-stale"): (
+        192, 600, 6062, 26396, 36591, 546, 64,
+        449.33257150094937, 255.9931482704495,
+        0.3473684210526316, 10.103333333333333),
+    ("SERVE_DIURNAL64", "MeDiC-oracle"): (
+        192, 527, 6062, 7728, 25150, 25585, 64,
+        271.5245166783219, 72.33689827044947,
+        0.31320520768753873, 11.502846299810246),
+    ("SERVE_POISSON2K", "Baseline"): (
+        4096, 281, 292920, 91053, 18264, 0, 2048,
+        182.39142191420174, 118.8737693089482,
+        0.9940874026152928, 1042.4199288256227),
+    ("SERVE_POISSON2K", "MeDiC"): (
+        4096, 281, 292920, 91043, 18264, 0, 2048,
+        182.66038228098057, 118.8698630589482,
+        0.9940874026152928, 1042.4199288256227),
+    ("SERVE_POISSON2K", "MeDiC-stale"): (
+        4096, 281, 292920, 91043, 18264, 0, 2048,
+        182.66038228098057, 118.8698630589482,
+        0.9940874026152928, 1042.4199288256227),
+    ("SERVE_POISSON2K", "MeDiC-oracle"): (
+        4096, 762, 292920, 371419, 1264091, 1264885, 2048,
+        611.1997367022464, 193.4138083714482,
+        0.36126580809838726, 384.40944881889766),
+}
+#: the reference's cut of SERVE_BURSTY64 for its fast == ref check
+#: (tests/test_serving_sim.py)
+SERVE_CUT = dict(n_requests=96, max_steps=1500)
+#: steps of the A/B's engine runs (ServeEngine.run's default)
+AB_STEPS = 2000
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _runs_equal(a: dict, b: dict) -> bool:
+    return all(_snaps_equal(a[k], b[k])
+               for k in ("request_arrays", "pool", "metrics"))
+
+
+def _closed_loop(policy: str) -> dict:
+    """The simulator on the A/B's request list under ``policy``, both pool
+    backends, against what the card's engine did in ``phase_serving``:
+    a closed-loop spec with SERVE_ECFG's slots and SERVE_POOL's pool."""
+    eng = AB_ENGINES[policy]
+    reqs = eng["requests"]
+    spec = SIM.ServingSpec(
+        "SERVE_AB", process="closed", n_requests=len(reqs),
+        max_slots=SERVE_ECFG.max_slots, max_len=SERVE_ECFG.max_len,
+        block_tokens=SERVE_POOL.block_tokens,
+        budget_blocks=SERVE_POOL.budget_blocks,
+        sampling_interval=SERVE_POOL.sampling_interval,
+        fetch_latency=SERVE_POOL.fetch_latency,
+        fetch_occupancy=SERVE_POOL.fetch_occupancy, max_steps=AB_STEPS)
+    outs = {b: SIM.simulate_serving(SIM.from_requests(reqs), spec,
+                                    policy=POOL_POLICIES[policy],
+                                    pool_backend=b) for b in ("fast", "ref")}
+    check(_runs_equal(outs["fast"], outs["ref"]),
+          f"closed loop {policy}: fast != ref")
+    out = outs["fast"]
+    for k in POOL_COUNTERS:
+        check(np.array_equal(out["pool"][k], eng["pool"][k]),
+              f"closed loop {policy}: pool {k} {out['pool'][k]} != the "
+              f"card engine's {eng['pool'][k]}")
+    m = out["metrics"]
+    agg = {k: m[k] for k in PINNED_AB[policy]}
+    check(agg == PINNED_AB[policy] == {k: eng["snapshot"][k]
+                                       for k in PINNED_AB[policy]},
+          f"closed loop {policy}: {agg} vs pinned {PINNED_AB[policy]}")
+    ra = out["request_arrays"]
+    for k in ("first_token_step", "finish_step", "generated",
+              "stall_steps"):
+        check(ra[k].tolist() == [getattr(r, k) for r in reqs],
+              f"closed loop {policy}: {k} differs from the card engine's")
+    # enqueue_step: equal on every admitted request; one never admitted
+    # is -1 here and keeps the Request default 0 in the engine
+    got = ra["enqueue_step"]
+    want = np.asarray([r.enqueue_step for r in reqs])
+    admitted = got >= 0
+    check(np.array_equal(got[admitted], want[admitted])
+          and bool((want[~admitted] == 0).all())
+          and bool((got[~admitted] == -1).all()),
+          f"closed loop {policy}: enqueue_step {got} vs {want}")
+    return dict(requests=len(reqs), admitted=int(admitted.sum()),
+                never_admitted=int((~admitted).sum()), **agg)
+
+
+def phase_serving_sim() -> dict:
+    """(a) registry.PAPER_SERVING through repro_torch.api (the simulator
+    runs on the host whatever the device): the reference's goldens, the
+    2048-slot pin and the bursty gate; (b) the two pool backends equal on
+    the cut SERVE_BURSTY64 under the 4 policies; (c) the simulator on the
+    A/B's requests equal to the full-width engines of ``phase_serving``."""
+    card = card_line()
+    exp = REG.PAPER_SERVING.with_(device=DEV)
+    plan = exp.compile()
+    kernels = [WSCAN.WAVE_QUEUE, CPASS.WAVE_CACHE, EVL.EVENT_LOOP,
+               GATHER.MEDIC_GATHER, DEC.DECODE_ATTENTION,
+               FLASH.FLASH_ATTENTION, RGLRU.RG_LRU, MLSTM.MLSTM]
+    before = [k.launches for k in kernels]
+    t0 = time.perf_counter()
+    rs = plan.execute()
+    wall = time.perf_counter() - t0
+    check([k.launches for k in kernels] == before,
+          "PAPER_SERVING launched a kernel: the simulator is host numpy")
+    pols = list(rs.policies)
+    got = {}
+    for sc in exp.scenarios:
+        for p in pols:
+            v = {k: rs.value(k, scenario=sc.name, policy=p, seed=0)
+                 for k in SERVING_INTS + SERVING_FLOATS}
+            want = GOLDEN_SERVING[(sc.name, p)]
+            ints = tuple(int(v[k]) for k in SERVING_INTS)
+            check(ints == want[:len(SERVING_INTS)] and all(
+                float(v[k]) == v[k] for k in SERVING_INTS),
+                f"PAPER_SERVING {sc.name} {p}: {ints} != {want}")
+            for k, w in zip(SERVING_FLOATS, want[len(SERVING_INTS):]):
+                check(abs(v[k] - w) <= 1e-12,
+                      f"PAPER_SERVING {sc.name} {p} {k}: {v[k]!r} vs {w!r}")
+            got[f"{sc.name}/{p}"] = v
+    for p in pols:
+        m = got[f"SERVE_POISSON2K/{p}"]
+        check(m["max_concurrency"] >= 2048 and m["completed"] == 4096
+              and m["steps"] <= 1200, f"SERVE_POISSON2K {p}: {m}")
+    p99 = {p: got[f"SERVE_BURSTY64/{p}"]["p99_latency"] for p in pols}
+    check(p99["MeDiC"] <= p99["Baseline"],
+          f"bursty gate: MeDiC p99 {p99['MeDiC']} > Baseline's "
+          f"{p99['Baseline']}")
+    buckets = []
+    for call, w in zip(plan.calls, rs.call_walls()):
+        steps = int(sum(got[f"{s.name}/{p}"]["steps"]
+                        for s in call.scenarios for p in pols))
+        buckets.append(dict(
+            slots=call.shape[1], requests=call.shape[2],
+            scenarios=[s.name for s in call.scenarios], wall_s=w,
+            steps=steps, s_per_step=w / steps))
+
+    cut = dataclasses.replace(SIM.SERVING_SPECS["SERVE_BURSTY64"],
+                              **SERVE_CUT)
+    reqs = SIM.generate_serving(cut, 0)
+    t1 = time.perf_counter()
+    for pol in exp.policies:
+        fast = SIM.simulate_serving(reqs, cut, policy=pol,
+                                    pool_backend="fast")
+        ref = SIM.simulate_serving(reqs, cut, policy=pol, pool_backend="ref")
+        check(_runs_equal(fast, ref), f"fast != ref on the cut "
+              f"SERVE_BURSTY64 under {pol.name}")
+    fast_ref_s = time.perf_counter() - t1
+
+    check(sorted(AB_ENGINES) == sorted(PINNED_AB),
+          "serving_sim needs the serving phase's A/B engines")
+    closed = {p: _closed_loop(p) for p in PINNED_AB}
+    return dict(card=card, wall_s=wall, plan=plan.describe(),
+                buckets=buckets, p99_bursty=p99,
+                poisson2k={p: {k: int(got[f"SERVE_POISSON2K/{p}"][k])
+                               for k in ("max_concurrency", "completed",
+                                         "steps")} for p in pols},
+                fast_eq_ref=dict(cut=SERVE_CUT, policies=pols,
+                                 seconds=fast_ref_s),
+                closed_loop=closed)
 
 
 # ---------------------------------------------------------------------------
@@ -1705,11 +1962,17 @@ def phase_mlstm(dev=DEV) -> dict:
     ms = time_ms(lambda: MLSTM.mlstm_cuda(*args), iters=20)
     dev_ms = device_ms(lambda: MLSTM.mlstm_cuda(*args), iters=10)
     q_ms = queued_ms(lambda: MLSTM.mlstm_cuda(*args), iters=20)
-    # device µs of each of its two kernels (chunk terms, state recurrence)
-    split = {next((n for n in ("mlstm_chunk_kernel", "mlstm_state_kernel")
-                   if n in k), k): us
-             for k, (_, us) in device_split(lambda: MLSTM.mlstm_cuda(*args),
-                                            iters=10).items()}
+    # device µs of each of its two kernels (chunk terms, state
+    # recurrence); None where torch.profiler stays blind to them, as it
+    # can late in a long process (said on stderr)
+    try:
+        split = {next((n for n in ("mlstm_chunk_kernel",
+                                   "mlstm_state_kernel") if n in k), k): us
+                 for k, (_, us) in device_split(
+                     lambda: MLSTM.mlstm_cuda(*args), iters=10).items()}
+    except RuntimeError as e:
+        print(f"mlstm kernels_us: {e}", file=sys.stderr, flush=True)
+        split = None
     plain_ms = time_ms(lambda: MLSTM._ref.mlstm_chunkwise_ref(*args),
                        iters=5)
     out, st = MLSTM.mlstm_cuda(*args)
@@ -1943,10 +2206,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     name = torch.cuda.get_device_name(0)
     # float32 products in full float32 (the plain versions and the reruns)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1972,6 +2232,7 @@ def main() -> int:
                       ("decode_attention", phase_decode_attention),
                       ("flash_attention", phase_flash_attention),
                       ("serving", phase_serving),
+                      ("serving_sim", phase_serving_sim),
                       ("serving_profile", phase_serving_profile),
                       ("rg_lru", phase_rg_lru), ("mlstm", phase_mlstm),
                       ("hybrid_serve", phase_hybrid_serve),

@@ -10,9 +10,10 @@ One front door for every sweep:
     ResultSet  labeled results: ``.sel()``, ``.speedup_over()``,
                ``.to_rows()`` / ``.to_json()``
     registry   the paper suites as data: ``registry.PAPER_FIG7``,
-               ``registry.STRESS``
+               ``registry.STRESS``, ``registry.PAPER_SERVING``
 
-Experiments run on the card unless ``device="cpu"`` is given.
+Experiments run on the card unless ``device="cpu"`` is given; serving
+buckets (``engine="serving"``) run the host-side serving simulator.
 """
 from repro_torch.api import registry
 from repro_torch.api.experiment import Experiment, Plan, PlanCall, run

@@ -17,8 +17,12 @@ executables.
 Runs go to the card unless ``device`` says otherwise (``device="cpu"``
 runs the plain PyTorch versions). A block's ``wall_s`` ends when its
 outputs are numpy arrays on the host, which waits for the card.
+``engine="serving"`` runs the open-loop serving simulator
+(``repro_torch.serving.sim``), which is host-side numpy as in the
+reference: its buckets run on the host whatever ``device`` is, though a
+run still needs the card unless ``device="cpu"`` is given.
 ``mesh``/``mesh_axes`` wait for the port of sharded sweeps (ROADMAP A8)
-and ``engine="serving"`` for the serving simulator (A7): both raise.
+and raise.
 """
 from __future__ import annotations
 
@@ -30,16 +34,20 @@ import numpy as np
 
 from repro_torch.api.results import ResultBlock, ResultSet
 from repro_torch.api.scenario import Scenario, Shape
-from repro_torch.core.engine import (SimParams, simulate_sweep,
-                                     validate_engine_args)
+from repro_torch.core.engine import (SimParams, resolve_device,
+                                     simulate_sweep, validate_engine_args)
 from repro_torch.policy import Policy
+from repro_torch.serving.sim import (POOL_BACKENDS, generate_serving,
+                                     simulate_serving)
 
 _TRACE_KEYS = ("lines", "pcs", "compute_gap", "archetype", "oracle_wtype")
 
 
 @dataclasses.dataclass(frozen=True)
 class PlanCall:
-    """One emitted ``simulate_sweep`` call: a (shape, engine) bucket."""
+    """One emitted ``simulate_sweep`` call: a (shape, engine) bucket.
+    Serving buckets run the (host-side) serving simulator instead; their
+    shape is ``(-1, max_slots, n_requests)``."""
     shape: Shape                       # (n_instr, n_warps, lines_per_instr)
     engine: str
     wave_size: Optional[int]
@@ -58,6 +66,30 @@ class PlanCall:
         mesh fields)."""
         return (self.shape, self.flat, n_policies, self.engine,
                 self.wave_size, self.scan_backend, self.cache_backend, prm)
+
+    def execute_serving(self, exp: "Experiment") -> ResultBlock:
+        """Run the serving simulator over this bucket, on the host: every
+        (scenario, seed) request stream under every policy, metrics
+        stacked to the standard ``[P, F]`` layout. One stream is
+        generated per entry and shared across policies, so an A/B always
+        compares on the IDENTICAL arrival sequence."""
+        t0 = time.perf_counter()
+        entries: List[Tuple[str, int]] = []
+        cols: List[List[Dict[str, float]]] = []   # [F][P] metric dicts
+        for s in self.scenarios:
+            for seed in s.seeds:
+                reqs = generate_serving(s.spec, seed)
+                entries.append((s.name, seed))
+                cols.append([simulate_serving(
+                    reqs, s.spec, policy=pol,
+                    pool_backend=exp.pool_backend)["metrics"]
+                    for pol in exp.policies])
+        metrics = {k: np.asarray(
+            [[cols[f][p][k] for f in range(len(entries))]
+             for p in range(len(exp.policies))], np.float64)
+            for k in cols[0][0]}
+        return ResultBlock(tuple(entries), metrics,
+                           time.perf_counter() - t0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,15 +119,23 @@ class Plan:
         for c in self.calls:
             i, w, l = c.shape
             names = ", ".join(f"{s.name}x{s.n_seeds}" for s in c.scenarios)
-            lines.append(f"  [{c.engine}] shape I={i} W={w} L={l} "
-                         f"flat={c.flat}: {names}")
+            if c.engine == "serving":
+                lines.append(f"  [serving] slots={w} requests={l} "
+                             f"flat={c.flat}: {names}")
+            else:
+                lines.append(f"  [{c.engine}] shape I={i} W={w} L={l} "
+                             f"flat={c.flat}: {names}")
         return "\n".join(lines)
 
     def execute(self, keep_traces: bool = False) -> ResultSet:
         """Materialize traces and run every planned call."""
         exp = self.experiment
+        resolve_device(exp.device)   # the card, unless device="cpu"
         blocks: List[ResultBlock] = []
         for call in self.calls:
+            if call.engine == "serving":
+                blocks.append(call.execute_serving(exp))
+                continue
             n_instr, n_warps, lanes = call.shape
             parts = [s.materialize() for s in call.scenarios]
             # a bucket may mix constant-intensity scenarios (scalar gap
@@ -142,7 +182,9 @@ class Experiment:
     the plan for inspection (bucketing, call count) without
     materializing any traces. ``device`` is where the simulations run:
     ``None`` is the card (raising without one), ``"cpu"`` the plain
-    PyTorch versions.
+    PyTorch versions. ``engine="serving"`` buckets run on the host
+    whatever the device (the simulator is host numpy, as in the
+    reference); the device check holds for them all the same.
     """
     name: str
     scenarios: Tuple[Scenario, ...]
@@ -154,6 +196,9 @@ class Experiment:
     scan_backend: str = "auto"
     #: wavefront cache-pass backend (repro_torch.kernels.cache_pass)
     cache_backend: str = "auto"
+    #: serving-engine pool-transaction backend (engine="serving" only);
+    #: "auto"/"fast" = vectorized access_batch, "ref" = sequential per-key
+    pool_backend: str = "auto"
     #: sharded sweeps are not ported (ROADMAP A8): must stay None
     mesh: Optional[object] = None
     mesh_axes: Optional[Tuple] = None
@@ -184,13 +229,23 @@ class Experiment:
             raise ValueError(
                 f"experiment {self.name!r}: mesh/mesh_axes (sharded "
                 "sweeps) are not ported to repro_torch yet (ROADMAP A8)")
+        serving = [s.name for s in self.scenarios if s.is_serving]
         if self.engine == "serving":
-            raise ValueError(
-                f"experiment {self.name!r}: engine='serving' needs the "
-                "open-loop serving simulator, not ported to repro_torch "
-                "yet (ROADMAP A7)")
-        validate_engine_args(self.engine, self.wave_size,
-                             self.scan_backend, self.cache_backend)
+            if len(serving) != len(self.scenarios):
+                raise ValueError(
+                    f"experiment {self.name!r}: engine='serving' takes "
+                    "only serving scenarios (Scenario.serving)")
+            if self.pool_backend not in POOL_BACKENDS:
+                raise ValueError(
+                    f"experiment {self.name!r}: unknown pool_backend "
+                    f"{self.pool_backend!r}; choose from {POOL_BACKENDS}")
+        else:
+            if serving:
+                raise ValueError(
+                    f"experiment {self.name!r}: serving scenarios "
+                    f"{serving} need engine='serving'")
+            validate_engine_args(self.engine, self.wave_size,
+                                 self.scan_backend, self.cache_backend)
 
     def compile(self) -> Plan:
         """Bucket scenarios by trace shape; one PlanCall per bucket."""

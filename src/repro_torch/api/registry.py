@@ -12,8 +12,7 @@ Experiments are registered under string names
 baseline plus the Rand(p) probe points the Rand(ideal) column derives
 from — shared by ``repro_torch.paper_figures`` and ad-hoc callers.
 
-Not here yet: ``STRESS_SHARD`` (sharded sweeps, ROADMAP A8) and the
-serving experiments (the open-loop serving simulator, A7).
+Not here yet: ``STRESS_SHARD`` (sharded sweeps, ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -38,6 +37,12 @@ STRESS_POLICIES: Tuple[Policy, ...] = (BL.BASELINE, BL.PCAL, BL.WBYP,
 #: phase-0 labels (stale) / periodic reclassification (online, at two
 #: windows) / ground-truth per-phase labels (oracle)
 PHASED_POLICIES: Tuple[Policy, ...] = BL.LABELING_LADDER
+
+#: the serving A/B ladder: LRU (Baseline preset), MeDiC, and the stale /
+#: oracle labeling variants — one simulator run per policy on the SAME
+#: arrival stream
+SERVING_POLICIES: Tuple[Policy, ...] = (BL.BASELINE, BL.MEDIC,
+                                        BL.MEDIC_STALE, BL.MEDIC_ORACLE)
 
 QUICK_WORKLOADS: Tuple[str, ...] = ("BFS", "SSSP", "BP", "CONS")
 QUICK_PHASED: Tuple[str, ...] = ("PHASED48", "PHASED256")
@@ -89,6 +94,20 @@ def recover(scenarios=tuple(TG.PHASED_RECOVER_SPECS), seeds=(0,),
         PHASED_POLICIES, engine=engine)
 
 
+def serving(scenarios=("SERVE_POISSON64", "SERVE_BURSTY64",
+                       "SERVE_DIURNAL64", "SERVE_POISSON2K"),
+            seeds=(0,), policies=SERVING_POLICIES,
+            name: str = "paper_serving") -> Experiment:
+    """Open-loop serving A/Bs on the vectorized continuous-batching
+    simulator (host numpy): arrival-process scenarios × the
+    LRU/MeDiC/stale/oracle pool-policy ladder. Every policy sees the
+    identical request stream per (scenario, seed)."""
+    return Experiment(
+        name,
+        tuple(Scenario.serving(s, seeds=seeds) for s in scenarios),
+        tuple(policies), engine="serving")
+
+
 PAPER_FIG7 = paper_fig7()
 PAPER_FIG7_QUICK = paper_fig7(QUICK_WORKLOADS, name="paper_fig7_quick")
 STRESS = stress()
@@ -96,11 +115,16 @@ PAPER_PHASED = phased()
 PAPER_PHASED_QUICK = phased(QUICK_PHASED, name="paper_phased_quick")
 PAPER_RECOVER = recover()
 PAPER_RECOVER_QUICK = recover(QUICK_RECOVER, name="paper_recover_quick")
+PAPER_SERVING = serving()
+PAPER_SERVING_QUICK = serving(("SERVE_POISSON64", "SERVE_BURSTY64"),
+                              policies=(BL.BASELINE, BL.MEDIC),
+                              name="paper_serving_quick")
 
 EXPERIMENTS: Dict[str, Experiment] = {
     e.name: e for e in (PAPER_FIG7, PAPER_FIG7_QUICK, STRESS, PAPER_PHASED,
                         PAPER_PHASED_QUICK, PAPER_RECOVER,
-                        PAPER_RECOVER_QUICK)}
+                        PAPER_RECOVER_QUICK, PAPER_SERVING,
+                        PAPER_SERVING_QUICK)}
 
 
 def get(name: str) -> Experiment:

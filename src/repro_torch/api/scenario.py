@@ -3,28 +3,31 @@
 
 A scenario is everything needed to materialize traces — a ``TraceSpec``
 (one of the paper's 15 workloads, a stress-matrix or phased spec, or a
-hand-built spec), the trace seeds, and an optional warp-count override —
+hand-built spec) or a ``ServingSpec`` (an open-loop serving scenario),
+the trace seeds, and an optional warp-count override —
 plus the label under which its results appear in a ``ResultSet``.
 
 Scenarios are immutable and hashable, so they can key caches and be
 deduplicated by the plan compiler. Lowering to concrete trace arrays
 goes through ``repro_torch.core.tracegen`` (the counter-RNG vectorized
-sampler, bit-exact with the reference's), on the host, in numpy.
-
-Serving scenarios (``Scenario.serving``) wait for the port of the
-open-loop serving simulator (ROADMAP A7) and raise.
+sampler, bit-exact with the reference's), on the host, in numpy; a
+serving scenario lowers to request streams through
+``repro_torch.serving.sim``'s counter-RNG arrival processes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 
 from repro_torch.core import tracegen as TG
 from repro_torch.core import workloads as WL
+from repro_torch.serving.sim.arrivals import generate_serving
+from repro_torch.serving.sim.spec import SERVING_SPECS, ServingSpec
 
 Shape = Tuple[int, int, int]          # (n_instr, n_warps, lines_per_instr)
+                                      # serving: (-1, max_slots, n_requests)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +40,7 @@ class Scenario:
     ``dataclasses.replace(spec, n_warps=...)`` scaling idiom).
     """
     name: str
-    spec: TG.TraceSpec
+    spec: Union[TG.TraceSpec, ServingSpec]
     seeds: Tuple[int, ...] = (0,)
     n_warps: Optional[int] = None
 
@@ -52,6 +55,9 @@ class Scenario:
         if self.n_warps is not None and self.n_warps < 1:
             raise ValueError(
                 f"scenario {self.name!r}: n_warps must be >= 1")
+        if self.is_serving and self.n_warps is not None:
+            raise ValueError(f"scenario {self.name!r}: n_warps does not "
+                             "apply to serving scenarios")
 
     # -- constructors -------------------------------------------------------
 
@@ -101,28 +107,42 @@ class Scenario:
         return cls(name or spec.name, spec, tuple(seeds), n_warps)
 
     @classmethod
-    def serving(cls, *args, **kwargs) -> "Scenario":
-        """Open-loop serving scenarios run on the serving simulator, which
-        the port does not have yet."""
-        raise ValueError(
-            "Scenario.serving: the open-loop serving simulator "
-            "(serving/sim) is not ported to repro_torch yet (ROADMAP A7)")
+    def serving(cls, scenario: Union[str, ServingSpec], seeds=(0,),
+                name: Optional[str] = None) -> "Scenario":
+        """An open-loop serving scenario (``serving.sim``): a name from
+        ``SERVING_SPECS`` or a hand-built ``ServingSpec``. Runs on the
+        serving simulator (``Experiment(engine="serving")``); request
+        streams lower through the counter-RNG arrival processes."""
+        if isinstance(scenario, ServingSpec):
+            spec = scenario
+        elif scenario in SERVING_SPECS:
+            spec = SERVING_SPECS[scenario]
+        else:
+            raise ValueError(f"unknown serving scenario {scenario!r}; "
+                             f"choose from {tuple(SERVING_SPECS)} or pass "
+                             "a ServingSpec")
+        return cls(name or spec.name, spec, tuple(seeds), None)
 
     @property
     def is_serving(self) -> bool:
-        return False
+        return isinstance(self.spec, ServingSpec)
 
     # -- lowering -----------------------------------------------------------
 
     @property
     def trace_spec(self) -> TG.TraceSpec:
         """The spec with the warp-count override applied."""
+        if self.is_serving:
+            raise TypeError(f"scenario {self.name!r} is a serving "
+                            "scenario; it has no trace spec")
         if self.n_warps is None or self.n_warps == self.spec.n_warps:
             return self.spec
         return dataclasses.replace(self.spec, n_warps=self.n_warps)
 
     @property
     def shape(self) -> Shape:
+        if self.is_serving:
+            return (-1, self.spec.max_slots, self.spec.n_requests)
         s = self.trace_spec
         return (s.n_instr, s.n_warps, s.lines_per_instr)
 
@@ -134,6 +154,14 @@ class Scenario:
         """Concrete trace arrays, seed-stacked along the leading axis:
         lines i32[S, I, W, L], pcs i32[S, I, W], compute_gap f32[S]
         (f32[S, I] when the phase schedule varies intensity),
-        archetype i32[S, W] (+ archetype2), oracle_wtype i32[S, I, W]."""
+        archetype i32[S, W] (+ archetype2), oracle_wtype i32[S, I, W].
+
+        Serving scenarios instead lower to seed-stacked request streams:
+        arrival f64[S, n], prompt_len/decode_len/prefix_id/prefix_len
+        i64[S, n] (``serving.sim.arrivals.generate_serving``)."""
+        if self.is_serving:
+            per_seed = [generate_serving(self.spec, s) for s in self.seeds]
+            return {k: np.stack([p[k] for p in per_seed])
+                    for k in per_seed[0]}
         tr = TG.generate_batch([self.trace_spec], self.seeds)
         return {k: v[0] for k, v in tr.items()}

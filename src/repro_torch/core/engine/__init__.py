@@ -31,8 +31,10 @@ from repro_torch.core.engine import event as _event
 from repro_torch.core.engine import wavefront as _wavefront
 from repro_torch.core.engine.state import (N_QBINS, SimParams, SimState,
                                            init_state, state_from_numpy)
-from repro_torch.kernels.cache_pass.ops import BACKENDS as CACHE_BACKENDS
-from repro_torch.kernels.wavefront_scan.ops import BACKENDS as SCAN_BACKENDS
+# the kernels' backend names from ``_build``, which imports no engine
+# module: the kernel packages import ``core.engine`` in turn
+from repro_torch.kernels._build import BACKENDS as CACHE_BACKENDS
+from repro_torch.kernels._build import BACKENDS as SCAN_BACKENDS
 from repro_torch.policy import Policy, policy_row, stack_policies
 
 ENGINES = ("event", "wavefront")

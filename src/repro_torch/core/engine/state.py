@@ -77,6 +77,12 @@ class SimState(NamedTuple):
     metrics: Dict[str, torch.Tensor]
 
 
+#: the cache and PC-table fields of ``SimState`` that a wave's cache pass
+#: advances, in the order the cache-pass kernel packs them
+CACHE_FIELDS = ("tags", "rrip", "meta_type", "eaf", "eaf_gen", "eaf_ctr",
+                "pc_hits", "pc_acc", "pc_req")
+
+
 _QBINS = torch.tensor([0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024,
                        1 << 30], dtype=F32)
 N_QBINS = len(_QBINS) - 1      # one bin per [edge_i, edge_{i+1}) interval

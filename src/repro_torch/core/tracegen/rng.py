@@ -5,15 +5,15 @@ torch tensors of the finished trace).
 
 Every draw is a pure function of ``(stream_key, index)`` — there is no
 sequential generator state, so the same cell yields the same bits whether
-it is computed alone in a Python loop (the reference package's
-``tracegen/ref.py``) or for the whole I×W×L×seeds block at once
-(``sampler.py``). This is what makes the vectorized/loop differential
+it is computed alone in a Python loop (``ref.py``) or for the whole
+I×W×L×seeds block at once (``sampler.py``). This is what makes the vectorized/loop differential
 test bit-exact instead of statistical.
 
 The construction is splitmix64: a draw at index ``i`` of the stream with
 key ``k`` finalizes the state ``k + i * GAMMA`` with the murmur-style
 avalanche. Two implementations are provided and tested against each
-other in the reference package:
+other through the loop/sampler differential
+(tests/test_torch_tracegen_ref.py):
 
   * array ops on ``np.uint64`` (wrapping arithmetic) for the sampler;
   * plain Python ints masked to 64 bits for the scalar reference, which

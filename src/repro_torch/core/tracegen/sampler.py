@@ -14,7 +14,7 @@ mirrors the original loop generator:
 
 but every uniform/index is a counter-RNG draw addressed by the cell's
 flat index, so the result is independent of evaluation order and
-bit-identical to the reference package's loop generator. Phase
+bit-identical to the loop generator ``ref.generate_ref``. Phase
 schedules only change WHICH per-phase parameters (archetype scalars,
 working-set table) a cell gathers — the cell draws themselves are
 phase-agnostic, which is why a single-phase schedule reduces

@@ -28,9 +28,8 @@ The lowering contract (DESIGN.md §"Trace generation"):
   controls what fraction of warps redraw), re-key private working sets
   (``churn`` — cold misses even for stable-type warps), and change
   ``intensity`` (lowered to a per-instruction compute gap). All phase
-  draws are counter-RNG draws at (tag, p*W + w), so the reference
-  package's loop generator (``tracegen/ref.py``) stays bit-identical
-  to the vectorized sampler, and a single-phase schedule reduces
+  draws are counter-RNG draws at (tag, p*W + w), so the loop generator
+  (``ref.py``) stays bit-identical to the vectorized sampler, and a single-phase schedule reduces
   byte-identically to the static legacy spec.
 
 Everything downstream of ``lower`` is a pure function of these arrays,
@@ -231,7 +230,7 @@ def make_layout(spec: TraceSpec) -> AddressLayout:
 
 
 # ---------------------------------------------------------------------------
-# phase-schedule compilation
+# phase-schedule compilation (shared by sampler.py and ref.py)
 # ---------------------------------------------------------------------------
 
 class PhasePlan(NamedTuple):
@@ -327,8 +326,8 @@ def _inv_cdf(cum: np.ndarray, u: np.ndarray) -> np.ndarray:
 
 def lower(spec: TraceSpec, seeds) -> Tuple[AddressLayout, WarpParams]:
     """Lower the schedule to per-(warp, phase) parameter arrays for every
-    seed in ``seeds`` at once (vectorized; the reference package's loop
-    generator recomputes the same values scalar-wise)."""
+    seed in ``seeds`` at once (vectorized; the loop generator in ref.py
+    recomputes the same values scalar-wise)."""
     seeds = np.atleast_1d(np.asarray(seeds, np.int64))
     layout = make_layout(spec)
     tab = spec.archetype_table()

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core import classifier as CLF
 from repro_torch.core import warp_types as WT
-from repro_torch.core.engine.state import SimParams, SimState
+from repro_torch.core.engine.state import CACHE_FIELDS, SimParams, SimState
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import Kernel, stream_of
 from repro_torch.kernels.cache_pass import ref as _ref
@@ -61,7 +61,7 @@ def resolve_backend(backend: str, device: torch.device) -> str:
     return _build.resolve_backend("cache", backend, device)
 
 
-_STATE_FIELDS = _ref._CACHE_FIELDS
+_STATE_FIELDS = CACHE_FIELDS
 _CLF_FIELDS = CLF.ClassifierState._fields
 _PA_FIELDS = ("bypass_sel", "ins_sel", "sched_medic", "rand_p", "label_sel",
               "reclass_interval", "probe_interval")

@@ -38,7 +38,8 @@ import torch
 from repro_torch.core import classifier as CLF
 from repro_torch.core import warp_types as WT
 from repro_torch.core.engine import request as REQ
-from repro_torch.core.engine.state import SimParams, SimState
+from repro_torch.core.engine.state import (CACHE_FIELDS as _CACHE_FIELDS,
+                                           SimParams, SimState)
 from repro_torch.policy import PolicyArrays, ops as POL
 
 F32 = torch.float32
@@ -168,8 +169,6 @@ def lane_cache_step(st: SimState, t_arr, addr, valid, owt,
                        victim_type, ev_valid)
 
 
-_CACHE_FIELDS = ("tags", "rrip", "meta_type", "eaf", "eaf_gen", "eaf_ctr",
-                 "pc_hits", "pc_acc", "pc_req")
 _PARKED = ("tags", "rrip", "meta_type", "eaf")
 
 

@@ -29,8 +29,8 @@ both altitudes share one mechanism implementation.
 State is held in fixed-capacity numpy arrays (one row per budgeted block:
 owner key, RRIP rank, owner type, insertion sequence), so lookup,
 insertion-pressure aging, and victim selection are vectorized — the
-dict-based original survives in the reference as
-``repro.serving.pool_ref.DictPoolManager`` (not ported yet).
+dict-based original survives as ``serving.pool_ref.DictPoolManager`` and a
+parity test pins this implementation to it.
 
 The manager tracks real block residency against a device-HBM budget; block
 payloads live in the engine's cache arrays and are offloaded/restored

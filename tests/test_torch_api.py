@@ -9,9 +9,9 @@ selections, speedups, rows and JSON — integer and per-element metrics
 exactly, the float reductions to rtol 1e-6 (torch and XLA sum in other
 orders). Then the port's figure functions against
 ``benchmarks/paper_figures.py`` on cut workloads, patched into both
-packages' workload tables for this module only. Also the refusals: the
-serving simulator (ROADMAP A7), meshes (A8), and a run without a card
-unless ``device="cpu"``.
+packages' workload tables for this module only. Also the refusals:
+meshes (ROADMAP A8), the reference's serving-engine checks, and a run
+without a card unless ``device="cpu"``.
 """
 import dataclasses
 import json
@@ -150,10 +150,16 @@ def test_one_call_per_shape_bucket():
 
 def test_refusals_name_the_missing_slices():
     sc = _scenarios(api, TG, WL)
-    with pytest.raises(ValueError, match="A7"):
-        api.Scenario.serving("SERVE_POISSON64")
-    with pytest.raises(ValueError, match="A7"):
-        api.Experiment("s", sc, (BL.MEDIC,), engine="serving")
+    # the serving simulator is ported: serving scenarios and the serving
+    # engine answer as the reference's do, refusals included
+    serve = api.Scenario.serving("SERVE_POISSON64")
+    jserve = japi.Scenario.serving("SERVE_POISSON64")
+    assert (serve.name, serve.shape, serve.seeds, serve.is_serving) == \
+        (jserve.name, jserve.shape, jserve.seeds, jserve.is_serving)
+    for pkg, trace, pol in ((api, sc, BL.MEDIC),
+                            (japi, _scenarios(japi, JTG, JWL), JBL.MEDIC)):
+        with pytest.raises(ValueError, match="only serving scenarios"):
+            pkg.Experiment("s", trace, (pol,), engine="serving")
     with pytest.raises(ValueError, match="A8"):
         api.Experiment("m", sc, (BL.MEDIC,), mesh=object())
     with pytest.raises(ValueError, match="A8"):

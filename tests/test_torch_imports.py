@@ -1,0 +1,49 @@
+"""Every module of ``repro_torch`` imports on its own, first thing in a
+fresh process: one case per module.
+
+An import cycle shows only for the module that starts it (the kernel
+packages import ``core.engine``, whose ``__init__`` imports the engines,
+which import the kernel packages back), so each case imports its module
+in a new process where no ``repro_torch`` module has been imported. The
+processes are children of one fork server that has imported ``torch``
+and ``numpy`` and nothing of this repository, which keeps a case at a
+fraction of a second instead of a whole interpreter start.
+"""
+import importlib
+import multiprocessing
+from pathlib import Path
+
+import pytest
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+MODULES = sorted(
+    ".".join(p.relative_to(SRC).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in (SRC / "repro_torch").rglob("*.py"))
+
+
+@pytest.fixture(scope="module")
+def ctx():
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["numpy", "torch"])
+    return ctx
+
+
+def test_every_module_is_listed():
+    assert len(MODULES) > 60
+    for must in ("repro_torch.kernels.cache_pass.ops",
+                 "repro_torch.kernels.cache_pass.ref",
+                 "repro_torch.core.tracegen.ref",
+                 "repro_torch.serving.pool_ref",
+                 "repro_torch.serving.sim.step"):
+        assert must in MODULES, must
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_module_imports_first_in_a_fresh_process(ctx, module):
+    proc = ctx.Process(target=importlib.import_module, args=(module,))
+    proc.start()
+    proc.join(120)
+    assert proc.exitcode == 0, \
+        f"import {module} failed in a fresh process (its traceback is in " \
+        f"the captured stderr), exit code {proc.exitcode}"
