@@ -53,6 +53,18 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      both kernels once a wave, counted from 0): requests/s per call and
      MeDiC's rank per scenario; then the PHASED256 / PHASED_RECOVER256
      goldens through ``Experiment.run``;
+ 10b. sharded — sharded sweeps through ``repro_torch.api`` (the reference's
+     ``Experiment(mesh=, mesh_axes=)``), each bitwise against the same run
+     without a mesh: a mesh of every card (one card: size 1, every axis
+     resolves to None); the quick fig7 workloads × seeds 0, 1 × 4
+     policies on a (2, 2) mesh of cuda:0 (one event-loop launch a policy
+     and seed block); PHASED256 × Baseline, MeDiC on a (2, 4) mesh (policy
+     blocks, warps in 4 shards); HAMMER16K × MeDiC (16,384 warps) with
+     its warps in 4 shards, both wavefront kernels once a wave; each
+     run's wall and peak memory; with several cards, HAMMER16K over
+     distinct cards, where cuda:0 must peak below half the unsharded run
+     and every other card below 1.25 × its shard of the trace (the trace
+     is spread, not copied whole to the first card);
  11. medic_gather, decode_attention, flash_attention — each serving-path
      kernel against its plain version on the card at the path's shapes
      (the gather bitwise, one pool and several in one launch, both of its
@@ -154,6 +166,7 @@ from repro_torch.kernels.mlstm import ops as MLSTM  # noqa: E402
 from repro_torch.kernels.rg_lru import ops as RGLRU  # noqa: E402
 from repro_torch.kernels.wavefront_scan import ops as WSCAN  # noqa: E402
 from repro_torch.kernels.wavefront_scan.ref import QueueCarry  # noqa: E402
+from repro_torch.launch import make_local_mesh  # noqa: E402
 from repro_torch.policy import (ops as POL, stack_policies,  # noqa: E402
                                 to_arrays)
 from repro_torch.serving import engine as ENG  # noqa: E402
@@ -993,6 +1006,146 @@ def phase_api() -> dict:
         phased[name] = dict(ipc=ipc, wall_s=rp.wall_s, launches=cp)
     return dict(stress=dict(wall_s=wall, launches=c, n_calls=len(
         rs.call_walls()), scenarios=scen), phased=phased)
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: sharded sweeps on meshes of the card
+# ---------------------------------------------------------------------------
+
+#: the sharded phase's fig7 policies (one per mechanism family)
+SHARD_POLICIES = (BL.BASELINE, BL.PCAL, BL.WBYP, BL.MEDIC)
+
+
+def _rs_bitwise(a, b, what: str) -> None:
+    """Two ResultSets equal bit for bit (NaN equal to NaN)."""
+    check(a.scenarios == b.scenarios and a.policies == b.policies,
+          f"{what}: labels differ")
+    for sc in a.scenarios:
+        for seed in a.seeds(sc):
+            x, y = a.get(sc, seed=seed), b.get(sc, seed=seed)
+            check(set(x) == set(y), f"{what}: metric names differ")
+            for k in x:
+                check(np.array_equal(np.asarray(x[k]), np.asarray(y[k]),
+                                     equal_nan=True),
+                      f"{what} {sc} seed {seed} {k}: sharded != unsharded")
+
+
+def _sharded_run(exp, mesh, axes, what: str) -> dict:
+    """``exp`` without a mesh, then on ``mesh`` with ``axes`` (counts set
+    to 0 just before each run and read just after): bitwise equal; each
+    run's wall (trace generation included), its calls' wall and its peak
+    device memory on cuda:0 (``peak_gb``) and on each card the mesh
+    names."""
+    out = {}
+    runs = {}
+    cards = sorted({d.index or 0 for d in mesh.devices.flat} | {0})
+    for key, e in (("unsharded", exp),
+                   ("sharded", exp.with_(mesh=mesh, mesh_axes=axes))):
+        for i in cards:
+            torch.cuda.synchronize(i)
+            torch.cuda.reset_peak_memory_stats(i)
+        reset_counts()
+        reset_event_count()
+        t0 = time.perf_counter()
+        runs[key] = e.run()
+        for i in cards:
+            torch.cuda.synchronize(i)
+        out[f"{key}_wall_s"] = time.perf_counter() - t0
+        # the simulate_sweep calls alone (trace generation left out)
+        out[f"{key}_call_s"] = runs[key].wall_s
+        out[f"{key}_peak_gb"] = torch.cuda.max_memory_allocated(0) / 1e9
+        out[f"{key}_peak_gb_by_card"] = {
+            f"cuda:{i}": torch.cuda.max_memory_allocated(i) / 1e9
+            for i in cards}
+        out[f"{key}_launches"] = dict(counts(),
+                                      event_loop=EVL.EVENT_LOOP.launches)
+    _rs_bitwise(runs["unsharded"], runs["sharded"], what)
+    call = exp.with_(mesh=mesh, mesh_axes=axes).compile().calls[0]
+    out["resolved"] = dict(policy=call.policy_axes, seed=call.seed_axes,
+                           warp=call.warp_axes)
+    out["mesh"] = repr(mesh)
+    return out
+
+
+def phase_sharded() -> dict:
+    """Sharded sweeps through ``repro_torch.api`` on meshes of the card,
+    each bitwise against the same run without a mesh: a mesh of every
+    card (one card: size 1, every axis resolves to None); the quick fig7
+    workloads × 2 seeds × 4 policies on a (2, 2) mesh of cuda:0 (policy
+    and seed blocks: one event-loop launch a block); PHASED256 × 2
+    policies on a (2, 4) mesh (policy blocks and warp shards); HAMMER16K
+    × MeDiC with its warps in 4 shards (both wavefront kernels once a
+    wave); and, with several cards, HAMMER16K over distinct cards."""
+    n_cards = torch.cuda.device_count()
+    fig7 = REG.paper_fig7(REG.QUICK_WORKLOADS, seeds=(0, 1),
+                          name="sharded_fig7").with_(
+        policies=SHARD_POLICIES, device=DEV)
+    every = make_local_mesh(1, n_cards)
+    r_every = _sharded_run(fig7, every, None, "fig7 on every card")
+    if n_cards == 1:
+        check(r_every["resolved"] == dict(policy=None, seed=None,
+                                          warp=None),
+              f"a size-1 mesh resolved {r_every['resolved']}")
+    one_card = functools.partial(make_local_mesh, device="cuda:0")
+    r_fig7 = _sharded_run(fig7, one_card(2, 2), ("data", "model", None),
+                          "fig7 on (2, 2)")
+    check(r_fig7["resolved"] == dict(policy="data", seed="model",
+                                     warp=None)
+          and r_fig7["sharded_launches"]["event_loop"] == 4
+          and r_fig7["unsharded_launches"]["event_loop"] == 1,
+          f"fig7 on (2, 2): {r_fig7}")
+    phased = REG.phased(("PHASED256",), name="sharded_phased").with_(
+        policies=(BL.BASELINE, BL.MEDIC), device=DEV)
+    r_phased = _sharded_run(phased, one_card(2, 4), ("data", None, "model"),
+                            "PHASED256 on (2, 4)")
+    hammer = REG.stress_shard(("HAMMER16K",), policies=(BL.MEDIC,),
+                              name="sharded_hammer16k").with_(device=DEV)
+    r_hammer = _sharded_run(hammer, one_card(1, 4), (None, None, "model"),
+                            "HAMMER16K on (1, 4)")
+    for what, r, warp in (("PHASED256", r_phased, "model"),
+                          ("HAMMER16K", r_hammer, "model")):
+        for key in ("unsharded", "sharded"):
+            c = r[f"{key}_launches"]
+            check(c["waves"] > 0 and c["wave_queue"] == c["waves"]
+                  and c["wave_cache"] == c["waves"],
+                  f"{what} {key}: launches {c} != one per wave")
+        check(r["resolved"]["warp"] == warp
+              and r["sharded_launches"]["waves"]
+              == r["unsharded_launches"]["waves"],
+              f"{what}: {r['resolved']}, waves {r}")
+    report = dict(every_card=r_every, fig7=r_fig7, phased=r_phased,
+                  hammer16k=r_hammer, card=card_line())
+    if n_cards > 1:
+        k = 1 << (n_cards.bit_length() - 1)
+        r = _sharded_run(hammer, make_local_mesh(1, k),
+                         (None, None, "model"), "HAMMER16K on cards")
+        c = r["sharded_launches"]
+        check(c["wave_queue"] == c["waves"] == c["wave_cache"]
+              and r["resolved"]["warp"] == "model", f"HAMMER16K cards {r}")
+        # the trace is spread: cuda:0 holds its shard, not the whole, and
+        # every other card little more than its shard of the trace (lines,
+        # pcs and oracle labels, i32)
+        spec = TG.SHARD_STRESS_SPECS["HAMMER16K"]
+        shard_gb = (spec.n_warps * spec.n_instr * (spec.lines_per_instr + 2)
+                    * 4 / k / 1e9)
+        r["shard_trace_gb"] = shard_gb
+        check(r["sharded_peak_gb"] < 0.5 * r["unsharded_peak_gb"],
+              f"HAMMER16K over {k} cards: cuda:0 peaks at "
+              f"{r['sharded_peak_gb']} GB against {r['unsharded_peak_gb']} "
+              f"GB unsharded")
+        for card, gb in r["sharded_peak_gb_by_card"].items():
+            check(card == "cuda:0" or gb < 1.25 * shard_gb,
+                  f"HAMMER16K over {k} cards: {card} peaks at {gb} GB, "
+                  f"its shard of the trace is {shard_gb} GB")
+        report["hammer16k_cards"] = r
+    # launches of the sharded runs alone (the unsharded ones are their
+    # reference)
+    report["launches"] = {
+        k: sum(r["sharded_launches"][k] for r in
+               (r_every, r_fig7, r_phased, r_hammer,
+                *([report["hammer16k_cards"]] if n_cards > 1 else [])))
+        for k in ("wave_queue", "wave_cache", "event_loop")}
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -2228,6 +2381,7 @@ def main() -> int:
                       ("golden", phase_golden), ("scale", phase_scale),
                       ("event", phase_event), ("fig7", phase_fig7),
                       ("wave1", phase_wave1), ("api", phase_api),
+                      ("sharded", phase_sharded),
                       ("medic_gather", phase_medic_gather),
                       ("decode_attention", phase_decode_attention),
                       ("flash_attention", phase_flash_attention),
@@ -2250,6 +2404,7 @@ def main() -> int:
              "fig7_quick": {"event_loop": results["fig7"]["launches"]},
              "paper_fig7": {"event_loop":
                             results["fig7"]["paper_fig7"]["launches"]},
+             "sharded": results["sharded"]["launches"],
              "serving": results["serving"]["launches"],
              "hybrid_serve": results["hybrid_serve"]["launches"],
              "ssm_serve": results["ssm_serve"]["launches"]}

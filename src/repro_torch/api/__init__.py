@@ -14,6 +14,8 @@ One front door for every sweep:
 
 Experiments run on the card unless ``device="cpu"`` is given; serving
 buckets (``engine="serving"``) run the host-side serving simulator.
+``mesh=`` / ``mesh_axes=`` place a sweep's policy, seed and warp axes on
+a ``repro_torch.sharding.Mesh`` (``repro_torch.launch.make_local_mesh``).
 """
 from repro_torch.api import registry
 from repro_torch.api.experiment import Experiment, Plan, PlanCall, run

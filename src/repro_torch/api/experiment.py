@@ -21,8 +21,14 @@ outputs are numpy arrays on the host, which waits for the card.
 (``repro_torch.serving.sim``), which is host-side numpy as in the
 reference: its buckets run on the host whatever ``device`` is, though a
 run still needs the card unless ``device="cpu"`` is given.
-``mesh``/``mesh_axes`` wait for the port of sharded sweeps (ROADMAP A8)
-and raise.
+
+``mesh`` (a ``repro_torch.sharding.Mesh``, e.g.
+``launch.make_local_mesh``) and ``mesh_axes`` (policy, seed, warp) place
+each bucket's sweep on a mesh of devices in this process; the plan
+compiler resolves the placement per bucket (the replication fallback
+applied), and the sharded run is bitwise the unsharded one. With a mesh
+the runs go to the mesh's devices; ``device`` must then name the mesh's
+device type, or stay ``None``.
 """
 from __future__ import annotations
 
@@ -32,10 +38,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import sharding as SH
 from repro_torch.api.results import ResultBlock, ResultSet
 from repro_torch.api.scenario import Scenario, Shape
-from repro_torch.core.engine import (SimParams, resolve_device,
-                                     simulate_sweep, validate_engine_args)
+from repro_torch.core.engine import (SimParams, mesh_device, resolve_device,
+                                     simulate_sweep, validate_engine_args,
+                                     validate_mesh_args)
 from repro_torch.policy import Policy
 from repro_torch.serving.sim import (POOL_BACKENDS, generate_serving,
                                      simulate_serving)
@@ -47,13 +55,22 @@ _TRACE_KEYS = ("lines", "pcs", "compute_gap", "archetype", "oracle_wtype")
 class PlanCall:
     """One emitted ``simulate_sweep`` call: a (shape, engine) bucket.
     Serving buckets run the (host-side) serving simulator instead; their
-    shape is ``(-1, max_slots, n_requests)``."""
+    shape is ``(-1, max_slots, n_requests)``.
+
+    ``mesh`` + the three axis fields are the bucket's resolved placement
+    (``None`` everywhere without a mesh): a policy count, seed-stack size
+    or warp count the mesh axes do not divide resolves to ``None`` here,
+    so ``describe()`` and ``compile_key`` show what will shard."""
     shape: Shape                       # (n_instr, n_warps, lines_per_instr)
     engine: str
     wave_size: Optional[int]
     scan_backend: str
     cache_backend: str
     scenarios: Tuple[Scenario, ...]    # seed blocks stack in this order
+    mesh: Optional[SH.Mesh] = None
+    policy_axes: SH.MeshAxes = None
+    seed_axes: SH.MeshAxes = None
+    warp_axes: SH.MeshAxes = None
 
     @property
     def flat(self) -> int:
@@ -62,10 +79,11 @@ class PlanCall:
 
     def compile_key(self, n_policies: int, prm: SimParams) -> tuple:
         """The call's signature: two calls with equal keys run the same
-        shapes and knobs (the reference's jit compile key, without its
-        mesh fields)."""
+        shapes, knobs and placement (the reference's jit compile key)."""
         return (self.shape, self.flat, n_policies, self.engine,
-                self.wave_size, self.scan_backend, self.cache_backend, prm)
+                self.wave_size, self.scan_backend, self.cache_backend, prm,
+                self.mesh, self.policy_axes, self.seed_axes,
+                self.warp_axes)
 
     def execute_serving(self, exp: "Experiment") -> ResultBlock:
         """Run the serving simulator over this bucket, on the host: every
@@ -123,14 +141,21 @@ class Plan:
                 lines.append(f"  [serving] slots={w} requests={l} "
                              f"flat={c.flat}: {names}")
             else:
+                shard = ""
+                if c.mesh is not None:
+                    shard = (f" sharded(policy={c.policy_axes} "
+                             f"seed={c.seed_axes} warp={c.warp_axes})")
                 lines.append(f"  [{c.engine}] shape I={i} W={w} L={l} "
-                             f"flat={c.flat}: {names}")
+                             f"flat={c.flat}{shard}: {names}")
         return "\n".join(lines)
 
     def execute(self, keep_traces: bool = False) -> ResultSet:
         """Materialize traces and run every planned call."""
         exp = self.experiment
-        resolve_device(exp.device)   # the card, unless device="cpu"
+        if exp.mesh is None:
+            resolve_device(exp.device)   # the card, unless device="cpu"
+        else:
+            mesh_device(exp.mesh, exp.device)
         blocks: List[ResultBlock] = []
         for call in self.calls:
             if call.engine == "serving":
@@ -156,7 +181,9 @@ class Plan:
                 engine=call.engine, wave_size=call.wave_size,
                 scan_backend=call.scan_backend,
                 cache_backend=call.cache_backend,
-                oracle_types=tr["oracle_wtype"], device=exp.device)
+                oracle_types=tr["oracle_wtype"], mesh=call.mesh,
+                policy_axes=call.policy_axes, seed_axes=call.seed_axes,
+                warp_axes=call.warp_axes, device=exp.device)
             # [P, F, ...] on the host: the copy waits for the card
             out = {k: v.cpu().numpy() for k, v in out.items()}
             wall = time.perf_counter() - t0
@@ -199,8 +226,17 @@ class Experiment:
     #: serving-engine pool-transaction backend (engine="serving" only);
     #: "auto"/"fast" = vectorized access_batch, "ref" = sequential per-key
     pool_backend: str = "auto"
-    #: sharded sweeps are not ported (ROADMAP A8): must stay None
-    mesh: Optional[object] = None
+    #: device mesh for sharded sweeps (``repro_torch.sharding.Mesh``, e.g.
+    #: ``launch.make_local_mesh``); None = one device. Every (policy,
+    #: seed) cell is an independent simulation, so the sharded run is
+    #: bitwise the unsharded one.
+    mesh: Optional[SH.Mesh] = None
+    #: (policy, seed, warp) mesh-axis assignment: which mesh axes the
+    #: policy axis, the seed-stack axis and (wavefront only) the warp
+    #: axis shard over. Entries are None, an axis name, or a tuple of
+    #: names; an axis that does not divide its dimension falls back to
+    #: replication per bucket. Defaults (when a mesh is given) to the
+    #: mesh's first two axis names for (policy, seed), no warp sharding.
     mesh_axes: Optional[Tuple] = None
     prm: SimParams = SimParams()
     #: where the simulations run (None: the card)
@@ -225,10 +261,27 @@ class Experiment:
         if pdupes:
             raise ValueError(f"experiment {self.name!r}: duplicate policy "
                              f"names {sorted(pdupes)}")
-        if self.mesh is not None or self.mesh_axes is not None:
-            raise ValueError(
-                f"experiment {self.name!r}: mesh/mesh_axes (sharded "
-                "sweeps) are not ported to repro_torch yet (ROADMAP A8)")
+        if self.mesh_axes is not None and self.mesh is None:
+            raise ValueError(f"experiment {self.name!r}: mesh_axes given "
+                             "without a mesh; pass mesh= as well")
+        if self.mesh is not None:
+            if self.engine == "serving":
+                raise ValueError(
+                    f"experiment {self.name!r}: engine='serving' runs "
+                    "host-side and does not take a mesh")
+            axes = self.mesh_axes
+            if axes is None:
+                names = tuple(self.mesh.axis_names)
+                axes = (names[0], names[1] if len(names) > 1 else None,
+                        None)
+            axes = tuple(axes) + (None,) * (3 - len(axes))
+            if len(axes) != 3:
+                raise ValueError(
+                    f"experiment {self.name!r}: mesh_axes must be up to "
+                    "3 entries (policy, seed, warp); got "
+                    f"{self.mesh_axes!r}")
+            object.__setattr__(self, "mesh_axes", axes)
+            validate_mesh_args(self.mesh, *axes, engine=self.engine)
         serving = [s.name for s in self.scenarios if s.is_serving]
         if self.engine == "serving":
             if len(serving) != len(self.scenarios):
@@ -248,14 +301,29 @@ class Experiment:
                                  self.scan_backend, self.cache_backend)
 
     def compile(self) -> Plan:
-        """Bucket scenarios by trace shape; one PlanCall per bucket."""
+        """Bucket scenarios by trace shape; one PlanCall per bucket.
+
+        With a mesh, each bucket's placement is resolved here against
+        its policy count, seed-stack size and warp count (the
+        replication fallback applied)."""
         buckets: Dict[Shape, List[Scenario]] = {}
         for s in self.scenarios:
             buckets.setdefault(s.shape, []).append(s)
-        return Plan(self, tuple(
-            PlanCall(shape, self.engine, self.wave_size, self.scan_backend,
-                     self.cache_backend, tuple(scens))
-            for shape, scens in buckets.items()))
+        calls = []
+        for shape, scens in buckets.items():
+            mesh = pol_ax = seed_ax = warp_ax = None
+            if self.mesh is not None:
+                mesh = self.mesh
+                p_want, s_want, w_want = self.mesh_axes
+                flat = sum(s.n_seeds for s in scens)
+                pol_ax = SH.resolve_axes(mesh, p_want, len(self.policies))
+                seed_ax = SH.resolve_axes(mesh, s_want, flat)
+                warp_ax = SH.resolve_axes(mesh, w_want, shape[1])
+            calls.append(
+                PlanCall(shape, self.engine, self.wave_size,
+                         self.scan_backend, self.cache_backend,
+                         tuple(scens), mesh, pol_ax, seed_ax, warp_ax))
+        return Plan(self, tuple(calls))
 
     def run(self, keep_traces: bool = False) -> ResultSet:
         return self.compile().execute(keep_traces=keep_traces)
@@ -268,9 +336,11 @@ class Experiment:
 def run(scenarios: Sequence[Scenario], policies: Sequence[Policy],
         engine: str = "event", wave_size: Optional[int] = None,
         scan_backend: str = "auto", cache_backend: str = "auto",
-        prm: SimParams = SimParams(), name: str = "adhoc",
-        keep_traces: bool = False, device=None) -> ResultSet:
+        prm: SimParams = SimParams(), mesh=None, mesh_axes=None,
+        name: str = "adhoc", keep_traces: bool = False,
+        device=None) -> ResultSet:
     """One-shot helper: ``api.run(scenarios, policies)`` -> ResultSet."""
     return Experiment(name, tuple(scenarios), tuple(policies), engine,
-                      wave_size, scan_backend, cache_backend, prm=prm,
+                      wave_size, scan_backend, cache_backend, mesh=mesh,
+                      mesh_axes=mesh_axes, prm=prm,
                       device=device).run(keep_traces=keep_traces)

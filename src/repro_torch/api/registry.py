@@ -11,8 +11,6 @@ Experiments are registered under string names
 ``FIG7_SWEEP_POLICIES`` is the canonical fig7 policy batch — every named
 baseline plus the Rand(p) probe points the Rand(ideal) column derives
 from — shared by ``repro_torch.paper_figures`` and ad-hoc callers.
-
-Not here yet: ``STRESS_SHARD`` (sharded sweeps, ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -71,6 +69,27 @@ def stress(scenarios=tuple(TG.STRESS_SPECS), seeds=(0,),
         STRESS_POLICIES, engine="wavefront")
 
 
+def stress_shard(scenarios=tuple(TG.SHARD_STRESS_SPECS), seeds=(0,),
+                 policies=STRESS_POLICIES,
+                 name: str = "stress_shard") -> Experiment:
+    """The 16k–64k-warp sharded-sweep stress tier (``HAMMER16K`` /
+    ``WIDE64K``) on the wavefront engine. Registered without a mesh (a
+    mesh holds concrete devices); attach one at run time, e.g.::
+
+        from repro_torch.launch import make_local_mesh
+        rs = registry.stress_shard(("HAMMER16K",)).with_(
+            mesh=make_local_mesh(1, 4),
+            mesh_axes=(None, None, "model")).run()
+
+    ``policies`` trims the batch. WIDE64K cannot be lowered at 65,536
+    warps (its address space overflows int32 in tracegen, as in the
+    reference), so materializing it raises."""
+    return Experiment(
+        name,
+        tuple(Scenario.stress(s, seeds=seeds) for s in scenarios),
+        tuple(policies), engine="wavefront")
+
+
 def phased(scenarios=tuple(TG.PHASED_SPECS), seeds=(0,),
            engine: str = "wavefront", name: str = "paper_phased"
            ) -> Experiment:
@@ -111,6 +130,7 @@ def serving(scenarios=("SERVE_POISSON64", "SERVE_BURSTY64",
 PAPER_FIG7 = paper_fig7()
 PAPER_FIG7_QUICK = paper_fig7(QUICK_WORKLOADS, name="paper_fig7_quick")
 STRESS = stress()
+STRESS_SHARD = stress_shard()
 PAPER_PHASED = phased()
 PAPER_PHASED_QUICK = phased(QUICK_PHASED, name="paper_phased_quick")
 PAPER_RECOVER = recover()
@@ -121,10 +141,10 @@ PAPER_SERVING_QUICK = serving(("SERVE_POISSON64", "SERVE_BURSTY64"),
                               name="paper_serving_quick")
 
 EXPERIMENTS: Dict[str, Experiment] = {
-    e.name: e for e in (PAPER_FIG7, PAPER_FIG7_QUICK, STRESS, PAPER_PHASED,
-                        PAPER_PHASED_QUICK, PAPER_RECOVER,
-                        PAPER_RECOVER_QUICK, PAPER_SERVING,
-                        PAPER_SERVING_QUICK)}
+    e.name: e for e in (PAPER_FIG7, PAPER_FIG7_QUICK, STRESS,
+                        STRESS_SHARD, PAPER_PHASED, PAPER_PHASED_QUICK,
+                        PAPER_RECOVER, PAPER_RECOVER_QUICK,
+                        PAPER_SERVING, PAPER_SERVING_QUICK)}
 
 
 def get(name: str) -> Experiment:

@@ -46,9 +46,12 @@ STRESS_NAMES = tuple(STRESS_SPECS)
 # Sharded-sweep stress tier: populations one to two orders beyond the 4k
 # ceiling above, in the wide-warp spirit of the Dynamic Warp Resizing
 # configs. Kept OUT of ``STRESS_SPECS`` so the default stress matrix is
-# unchanged; these sizes are meant for a sharded-warp engine on a device
-# mesh. Both warp counts are powers of two so every 2^k-sized mesh axis
-# divides them.
+# unchanged; these sizes are meant for the wavefront engine's sharded-warp
+# path on a device mesh (``simulate(..., mesh=, warp_axes=)``,
+# ``registry.stress_shard``). Both warp counts are powers of two so every
+# 2^k-sized mesh axis divides them. WIDE64K cannot be lowered at 65,536
+# warps: ``make_layout`` raises (its address space overflows int32), as
+# the reference's does.
 # ---------------------------------------------------------------------------
 
 SHARD_STRESS_SPECS: Dict[str, TraceSpec] = {s.name: s for s in [

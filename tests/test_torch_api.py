@@ -9,9 +9,9 @@ selections, speedups, rows and JSON — integer and per-element metrics
 exactly, the float reductions to rtol 1e-6 (torch and XLA sum in other
 orders). Then the port's figure functions against
 ``benchmarks/paper_figures.py`` on cut workloads, patched into both
-packages' workload tables for this module only. Also the refusals:
-meshes (ROADMAP A8), the reference's serving-engine checks, and a run
-without a card unless ``device="cpu"``.
+packages' workload tables for this module only. Also the refusals: the
+reference's mesh and serving-engine checks, and a run without a card
+unless ``device="cpu"``.
 """
 import dataclasses
 import json
@@ -19,6 +19,7 @@ import json
 import numpy as np
 import pytest
 import torch
+from jax.sharding import AbstractMesh
 
 from benchmarks import paper_figures as JPF
 from repro import api as japi
@@ -31,6 +32,7 @@ from repro_torch import paper_figures as PF
 from repro_torch.core import baselines as BL
 from repro_torch.core import tracegen as TG
 from repro_torch.core import workloads as WL
+from repro_torch.launch import make_local_mesh
 
 FLOAT_REDUCTIONS = ("ipc", "ipc_makespan", "qdelay_sum", "stall_cycles",
                     "energy", "perf_per_energy", "mean_qdelay", "miss_rate")
@@ -144,8 +146,18 @@ def test_one_call_per_shape_bucket():
     assert api.registry.PAPER_FIG7.compile().n_calls == 1
     assert api.registry.PAPER_FIG7_QUICK.compile().calls[0].flat == 4
     assert api.registry.get("stress").engine == "wavefront"
+    shard = api.registry.get("stress_shard")
+    jshard = japi.registry.get("stress_shard")
+    assert shard.engine == jshard.engine == "wavefront"
+    assert shard.mesh is None and jshard.mesh is None
+    assert [s.name for s in shard.scenarios] == \
+        [s.name for s in jshard.scenarios] == ["HAMMER16K", "WIDE64K"]
+    assert [s.shape for s in shard.scenarios] == \
+        [s.shape for s in jshard.scenarios]
+    assert [p.name for p in shard.policies] == \
+        [p.name for p in jshard.policies]
     with pytest.raises(KeyError):
-        api.registry.get("stress_shard")
+        api.registry.get("stress_shard_missing")
 
 
 def test_refusals_name_the_missing_slices():
@@ -160,10 +172,23 @@ def test_refusals_name_the_missing_slices():
                             (japi, _scenarios(japi, JTG, JWL), JBL.MEDIC)):
         with pytest.raises(ValueError, match="only serving scenarios"):
             pkg.Experiment("s", trace, (pol,), engine="serving")
-    with pytest.raises(ValueError, match="A8"):
-        api.Experiment("m", sc, (BL.MEDIC,), mesh=object())
-    with pytest.raises(ValueError, match="A8"):
-        api.Experiment("m", sc, (BL.MEDIC,), mesh_axes=("x",))
+    # sharded sweeps are ported: the mesh refusals are the reference's
+    jsc = _scenarios(japi, JTG, JWL)
+    msgs = []
+    for pkg, trace, pol in ((api, sc, BL.MEDIC), (japi, jsc, JBL.MEDIC)):
+        with pytest.raises(ValueError, match="without a mesh") as ei:
+            pkg.Experiment("m", trace, (pol,), mesh_axes=("x",))
+        msgs.append(str(ei.value))
+    assert msgs[0] == msgs[1]
+    msgs = []
+    for pkg, pol, mesh in (
+            (api, BL.MEDIC, make_local_mesh(1, 2, device="cpu")),
+            (japi, JBL.MEDIC, AbstractMesh((1, 2), ("data", "model")))):
+        with pytest.raises(ValueError, match="does not take a mesh") as ei:
+            pkg.Experiment("m", (pkg.Scenario.serving("SERVE_POISSON64"),),
+                           (pol,), engine="serving", mesh=mesh)
+        msgs.append(str(ei.value))
+    assert msgs[0] == msgs[1]
     with pytest.raises(ValueError, match="wave_size"):
         api.Experiment("w", sc, (BL.MEDIC,), wave_size=4)
     with pytest.raises(ValueError, match="duplicate policy"):

@@ -35,7 +35,9 @@ def test_every_module_is_listed():
                  "repro_torch.kernels.cache_pass.ref",
                  "repro_torch.core.tracegen.ref",
                  "repro_torch.serving.pool_ref",
-                 "repro_torch.serving.sim.step"):
+                 "repro_torch.serving.sim.step",
+                 "repro_torch.sharding",
+                 "repro_torch.launch.mesh"):
         assert must in MODULES, must
 
 
@@ -47,3 +49,27 @@ def test_module_imports_first_in_a_fresh_process(ctx, module):
     assert proc.exitcode == 0, \
         f"import {module} failed in a fresh process (its traceback is in " \
         f"the captured stderr), exit code {proc.exitcode}"
+
+
+#: run in a fresh child: import the sharded-sweep modules and the API, then
+#: exit 1 if anything of JAX or of the reference package was imported
+_NO_REFERENCE = """
+import importlib, sys
+for m in ("repro_torch.sharding", "repro_torch.launch.mesh",
+          "repro_torch.launch", "repro_torch.api"):
+    importlib.import_module(m)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+if bad:
+    print("imported:", bad[:8], file=sys.stderr)
+    sys.exit(1)
+"""
+
+
+def test_sharded_sweep_modules_import_neither_jax_nor_the_reference(ctx):
+    proc = ctx.Process(target=exec, args=(_NO_REFERENCE,))
+    proc.start()
+    proc.join(120)
+    assert proc.exitcode == 0, \
+        "importing repro_torch.sharding / launch.mesh / api pulled in jax " \
+        f"or repro (see the captured stderr), exit code {proc.exitcode}"
