@@ -85,7 +85,10 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      V together). Then
      MeDiC for a few steps with the kernels and with their plain versions
      (backend="ref") in float32 at full width: snapshots equal, committed
-     K/V caches within 2e-2;
+     K/V caches within 2e-2; and the same pair on a ring that is not a
+     whole number of pool blocks (max_len 100, blocks of 16, read in pages
+     of 4; 2 layers): snapshots equal, K/V within 2e-2, one gather launch
+     per offload;
  12b. serving_sim — the open-loop serving simulator (host numpy, as in
      the reference): ``registry.PAPER_SERVING`` whole through
      ``repro_torch.api`` (4 scenarios × 4 policies, two buckets) equal to
@@ -120,6 +123,18 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      kernels and through their plain versions: logits within the
      family's SERVE_F32_TOL, greedy tokens equal wherever the top-two gap
      is wider;
+ 15b. dense_serve, moe_serve — the same for the other dense configs and
+     the MoE family, random weights from seed 0, each run's depth cut
+     recorded: H2O-Danube-1.8B whole (2 prompts of 4608 into its window
+     of 4096, the ring; 32 steps), Granite-3-8B whole (2 x 512, 16
+     steps) and Qwen1.5-110B at full width with 4 of its 80 layers (2 x
+     512, 16 steps); OLMoE-1B-7B whole (2 x 1024, 32 steps) and
+     Grok-1-314B at full width with 2 of its 64 layers (2 x 512, 16
+     steps). Flash launches = layers and decode launches = layers x steps
+     in every run. The MoE runs also compare the two float32 runs'
+     routing (root flips, each with a probability gap under FLIP_GAP, and
+     the flips downstream of them) and measure the floor of a plain run
+     whose router logits are float64;
  16. kernels  — one JSON object per kernel: launches on its paths, max
      error against the plain version, ms and device ms, the bound and the
      library call's ms and device ms; every Pallas kernel of the
@@ -133,6 +148,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import subprocess
 import sys
@@ -167,6 +183,7 @@ from repro_torch.kernels.rg_lru import ops as RGLRU  # noqa: E402
 from repro_torch.kernels.wavefront_scan import ops as WSCAN  # noqa: E402
 from repro_torch.kernels.wavefront_scan.ref import QueueCarry  # noqa: E402
 from repro_torch.launch import make_local_mesh  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.policy import (ops as POL, stack_policies,  # noqa: E402
                                 to_arrays)
 from repro_torch.serving import engine as ENG  # noqa: E402
@@ -1371,6 +1388,11 @@ def phase_decode_attention(dev=DEV) -> dict:
     bytes_moved = (nbytes([q, ident, ln]) + 2 * row * sum(lens)
                    + nbytes([q]))
     ops = 4 * sum(lens) * HKV * G_ * D_
+    for shape in DECODE_SERVE:
+        for dtype in (torch.bfloat16, torch.float32):
+            e, n_cases = decode_edges(gen, dev, *shape, dtype)
+            err[str(dtype)] = max(err[str(dtype)], e)
+            cases += n_cases
     hybrid = _decode_attention_hybrid(gen, dev)
     return dict(cases=cases + hybrid.pop("cases"),
                 max_abs_err=max(err["torch.bfloat16"],
@@ -1382,6 +1404,48 @@ def phase_decode_attention(dev=DEV) -> dict:
                 n_split=plan.n_split, split_len=plan.split_len,
                 lengths=lens, bytes=bytes_moved,
                 ops=ops, hybrid=hybrid)
+
+
+#: the dense and moe serve runs' decode, the ring read as one page (B,
+#: Hkv, G, D, page, pages): Danube (G 4, D 80, its window's ring of 4096,
+#: and as pages of 16), Granite (G 4), Grok-1 (G 6), Qwen1.5 (G 8) at the
+#: ring of 528, OLMoE (G 1) at 1056
+DECODE_SERVE = [(2, 8, 4, 80, 4096, 1), (2, 8, 4, 80, 16, 256),
+                (2, 8, 4, 128, 528, 1), (2, 8, 6, 128, 528, 1),
+                (2, 8, 8, 128, 528, 1), (2, 16, 1, 128, 1056, 1)]
+
+
+def decode_edges(gen, dev, b, hkv, g, d, page, p, dtype) -> tuple:
+    """The split-KV kernel at lengths on its own splits' edges (1,
+    split - 1, split, split + 1, the full table), 0 beside a full row, and
+    holes among many short splits, against the plain version; rows with
+    nothing live give zeros. Returns (max |err|, cases)."""
+    plan = DEC.device_plan(dev, b, hkv, page, p)
+    cap, sp = page * p, plan.split_len
+    n = b * p
+    q = _randn((b, hkv, g, d), dtype, gen, dev)
+    kp = _randn((n, page, hkv, d), dtype, gen, dev)
+    vp = _randn((n, page, hkv, d), dtype, gen, dev)
+    tbl = torch.randperm(n, generator=gen, device=dev).to(
+        torch.int32).view(b, p)
+    if p > 1:
+        tbl[0, 1::5] = -1
+    edges = [1, sp - 1, sp, sp + 1, 2 * sp, cap - 1, cap, 0]
+    err, cases = 0.0, 0
+    for i in range(0, len(edges), b):
+        lens = [min(max(x, 0), cap) for x in (edges[i:i + b] + [cap] * b)[:b]]
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = DEC.paged_decode_attention_cuda(q, kp, vp, tbl, ln)
+        torch.cuda.synchronize()
+        plain = DEC._ref.paged_decode_attention_ref(q, kp, vp, tbl, ln)
+        err = max(err, _close(out, plain, dtype, f"decode B={b} Hkv={hkv} "
+                              f"G={g} D={d} page={page}x{p} {plan} {lens} "
+                              f"{dtype}"))
+        for row, length in enumerate(lens):
+            check(length > 0 or torch.count_nonzero(out[row]) == 0,
+                  f"decode G={g} D={d}: a row with nothing live is not 0")
+        cases += 1
+    return err, cases
 
 
 #: the hybrid path's decode: B 2, one KV head, G 10, D 256, a ring of 2048
@@ -1474,6 +1538,18 @@ FLASH_CASES = [  # (S, H, Hkv, D, causal, window, dtype)
     (70, 1, 1, 32, True, 8, torch.bfloat16),
     (65, 16, 8, 128, False, None, torch.bfloat16),
     (77, 4, 2, 200, True, 50, torch.bfloat16),
+    # the dense and moe serve runs' prefills: Danube (D 80, G 4, window
+    # 4096 at S 4608), Granite (G 4), Grok-1 (G 6), Qwen1.5 (G 8), OLMoE
+    # (G 1), and D 80 and G 6 off the tile
+    (4608, 32, 8, 80, True, 4096, torch.bfloat16),
+    (512, 32, 8, 128, True, None, torch.bfloat16),
+    (512, 48, 8, 128, True, None, torch.bfloat16),
+    (512, 64, 8, 128, True, None, torch.bfloat16),
+    (1024, 16, 16, 128, True, None, torch.bfloat16),
+    (333, 32, 8, 80, True, 100, torch.bfloat16),
+    (77, 8, 2, 80, False, None, torch.bfloat16),
+    (100, 8, 2, 80, True, 64, torch.float32),
+    (130, 12, 2, 128, True, 40, torch.bfloat16),
 ]
 
 
@@ -1650,6 +1726,9 @@ def phase_serving(cfg=None, dev=DEV, rerun_steps: int = 96) -> dict:
         check(torch.allclose(kvk[n], kvr[n], atol=2e-2, rtol=2e-2),
               f"serving rerun: committed {n} beyond 2e-2")
         kv_err = max(kv_err, float((kvk[n] - kvr[n]).abs().max()))
+    rerun_s = time.perf_counter() - t1
+    del runs, kvk, kvr, ck, cr
+    ragged = _ragged_ring(cfg32, dev)
     return dict(wall_s=wall, decode_steps=eng["decode_steps"],
                 decode_steps_per_s=eng["decode_steps"] / wall,
                 tokens_out=tokens, tokens_per_s=tokens / wall,
@@ -1657,7 +1736,57 @@ def phase_serving(cfg=None, dev=DEV, rerun_steps: int = 96) -> dict:
                 ab=ab, rerun=dict(steps=sk["steps"], dtype="float32",
                                   max_abs_err_kv=kv_err,
                                   tokens_out=sk["tokens_out"],
-                                  seconds=time.perf_counter() - t1))
+                                  seconds=rerun_s),
+                ragged=ragged)
+
+
+#: a ring that is not a whole number of pool blocks (max_len 100, blocks
+#: of 16): the engine reads it in pages of gcd(100, 16) = 4, and its last
+#: block is 4 tokens; chat requests wrap it and the budget offloads every
+#: block index (tests/test_torch_serving_engine.py holds the same run
+#: against the reference on the CPU)
+RAGGED_ECFG = ENG.EngineConfig(max_slots=2, max_len=100)
+RAGGED_POOL = PoolConfig(budget_blocks=8, block_tokens=16,
+                         sampling_interval=8, policy="medic")
+RAGGED_WL = ServeWorkload(n_requests=4, chat_frac=1.0)
+#: committed K/V of the float32 runs, kernels against plain: 5.30e-6 on
+#: the H100 (2 layers, the K/V of layer 1 carry layer 0's attention)
+RAGGED_KV_TOL = 1e-4
+
+
+def _ragged_ring(cfg32, dev, layers: int = 2) -> dict:
+    """The engine at max_len 100 with Qwen3's full width cut to
+    ``layers`` layers in float32, through the kernels and through their
+    plain versions: snapshots, ``len`` and ``kv_pos`` equal, committed K/V
+    within RAGGED_KV_TOL, one gather launch per offload and one decode
+    launch per layer a step."""
+    cfg = dataclasses.replace(cfg32, num_layers=layers)
+    params = ENG.init_params(cfg, 0, dev)
+    runs = {}
+    for backend in ("cuda", "ref"):
+        reset_serving_counts()
+        e = ENG.ServeEngine(cfg, RAGGED_ECFG, RAGGED_POOL, device=dev,
+                            backend=backend, params=params)
+        snap = e.run(generate_requests(RAGGED_WL, seed=0), max_steps=400)
+        runs[backend] = (snap, e._kv_leaves(), serving_counts(),
+                         dataclasses.asdict(ENG.COUNTS), e.page, e.cache)
+        del e
+    (sk, kvk, lk, ek, page, ck), (sr, kvr, _, _, _, cr) = (runs["cuda"],
+                                                          runs["ref"])
+    check(page == 4 and _snaps_equal(sk, sr), "ragged ring: kernels' "
+          "snapshot != plain versions'")
+    check(torch.equal(ck["len"], cr["len"])
+          and torch.equal(ck["kv_pos"], cr["kv_pos"]),
+          "ragged ring: len / kv_pos differ")
+    check(lk["medic_gather"] == ek["offloads"] > 0
+          and lk["paged_decode_attention"] == layers * ek["decode_steps"]
+          > 0, f"ragged ring launches {lk} vs {ek}")
+    err = max(float((kvk[n] - kvr[n]).abs().max()) for n in ("k", "v"))
+    check(err <= RAGGED_KV_TOL, f"ragged ring: committed K/V differ by "
+          f"{err}")
+    return dict(page=page, steps=sk["steps"], completed=sk["completed"],
+                fetches=sk["fetches"], launches=lk, engine_counts=ek,
+                max_abs_err_kv=err)
 
 
 # ---------------------------------------------------------------------------
@@ -2170,9 +2299,24 @@ RECURRENT_KERNELS = {"rg_lru": RGLRU.RG_LRU, "mlstm": MLSTM.MLSTM,
 #:   alone moves xLSTM's logits by ~1e-3. The phase measures that floor on
 #:   the card with a second plain run whose mLSTM takes chunks of 32 (as
 #:   exact a form as the chunks of 64): ``plain_floor``; 1e-2.
+#: - dense: as the hybrid, the attention kernels alone; ~2e-5 in the
+#:   logits of Danube, Granite and Qwen1.5 (4 layers) on the H100; 1e-3.
+#: - moe: the router takes each token's top k experts, and where the k-th
+#:   and (k+1)-th probabilities sit within rounding of each other the two
+#:   runs can choose differently (a flip); a flip moves that token's
+#:   output by a whole expert's share, and the experts' positions of every
+#:   later token. The phase counts the flips (``_flips``) and measures the
+#:   floor with a second plain run whose router logits are computed in
+#:   float64 (as exact a form as float32's): ``plain_floor``. On the H100
+#:   OLMoE's whole run has 3 root flips (gaps under 1e-6) and logits
+#:   within 1.83e-4 of the plain run, at a floor of 1.84e-4; Grok (2
+#:   layers) none, 2e-5 at a floor of 1.1e-5; 1e-3.
 #: ``tol_share`` is the largest |a - b| / (atol + rtol |b|) seen.
-SERVE_F32_TOL = {"hybrid": 1e-3, "ssm": 1e-2}
+SERVE_F32_TOL = {"hybrid": 1e-3, "ssm": 1e-2, "dense": 1e-3, "moe": 1e-3}
 SERVE_STEPS = 32
+#: a flip's probability gap (between the experts the two runs swapped, in
+#: the plain run) must be under this: a routing near-tie, not a fault
+FLIP_GAP = 1e-5
 
 
 def _generate(model, prompts, seq_len, steps, forced=None):
@@ -2250,13 +2394,112 @@ def _compare(cfg, ko, po, tol) -> dict:
                 greedy_agree=agree)
 
 
+class _Routing:
+    """While active, records every MoE call's router probabilities and
+    chosen experts (``calls``: one (probs [T, E], eidx [T, k]) a layer a
+    forward, in call order)."""
+
+    def __init__(self):
+        self.calls = []
+        self._top_k = MOE.top_k
+
+    def _record(self, probs, k):
+        vals, idx = self._top_k(probs, k)
+        self.calls.append((probs, idx))
+        return vals, idx
+
+    def __enter__(self):
+        self._patch = mock.patch.object(MOE, "top_k", self._record)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def _router_f64(xf, router):
+    """The router's logits computed in float64, rounded to float32."""
+    return (xf.double() @ router.double()).float()
+
+
+def _kept(idx, n_experts: int, cap: int):
+    """Which experts each token reaches after the capacity cut, bool [T,
+    E]: the dispatch's positions in call order (a token's experts are
+    distinct, so its own earlier choices never offset it)."""
+    onehot = torch.nn.functional.one_hot(idx, n_experts)           # [T,k,E]
+    assign = onehot.sum(1)
+    pos = ((assign.cumsum(0) - assign)[:, None, :] * onehot).sum(-1)
+    return (onehot * (pos < cap)[..., None]).sum(1) > 0
+
+
+def _flips(cfg, layers: int, kern: list, plain: list) -> dict:
+    """Routing of the kernels' run against the plain run, call by call.
+    A flip is a token whose set of experts differs. A token is perturbed
+    from its first flip, or its first capacity cut that differs (a flip
+    before it moves its experts' positions), to the end of the forward.
+    A flip of a token not yet perturbed is a root flip (its inputs differ
+    by rounding and by what attention brings from perturbed tokens); its
+    probability gap is the largest between an expert only one run chose
+    and one only the other chose, in the plain run's probabilities, and
+    every root flip's must be under FLIP_GAP. Flips of perturbed tokens
+    are downstream. Also: each run's dropped assignments, and the largest
+    probability difference between the runs over unperturbed tokens (the
+    rounding that a flip has to beat)."""
+    e = cfg.num_experts
+    roots, gaps, drops = [], [], [0, 0]
+    downstream = order_only = cut_differs = 0
+    noise = 0.0
+    perturbed = None
+    for i, ((pk, ik), (pp, ip)) in enumerate(zip(kern, plain)):
+        if i % layers == 0:                        # a new forward
+            perturbed = torch.zeros(ik.shape[0], dtype=torch.bool,
+                                    device=ik.device)
+        sk, sp = ik.sort(-1).values, ip.sort(-1).values
+        differ = (sk != sp).any(-1)
+        order_only += int(((ik != ip).any(-1) & ~differ).sum())
+        cap = MOE.capacity(cfg, ik.shape[0])
+        kk, kp = _kept(ik, e, cap), _kept(ip, e, cap)
+        cut = (kk != kp).any(-1) & ~differ
+        cut_differs += int(cut.sum())
+        calm = ~(perturbed | differ | cut)
+        if bool(calm.any()):
+            noise = max(noise, float((pk[calm] - pp[calm]).abs().max()))
+        for row in torch.nonzero(differ).flatten().tolist():
+            if perturbed[row]:
+                downstream += 1
+                continue
+            a = set(sk[row].tolist()) - set(sp[row].tolist())
+            b = set(sp[row].tolist()) - set(sk[row].tolist())
+            gaps.append(max(abs(float(pp[row, x]) - float(pp[row, y]))
+                            for x in a for y in b))
+            roots.append(dict(call=i, layer=i % layers, token=row,
+                              gap=gaps[-1]))
+        perturbed |= differ | cut
+        for j, kept in enumerate((kk, kp)):
+            drops[j] += ik.numel() - int(kept.sum())
+    check(all(g < FLIP_GAP for g in gaps), f"{cfg.name}: a routing flip "
+          f"with a probability gap of {max(gaps, default=0.0)} >= "
+          f"{FLIP_GAP}")
+    return dict(calls=len(kern), root_flips=len(roots),
+                downstream_flips=downstream, order_only=order_only,
+                cut_differs=cut_differs, max_root_gap=max(gaps, default=0.0),
+                roots=roots[:16], max_prob_diff_unperturbed=noise,
+                dropped_assignments=dict(kernels=drops[0], plain=drops[1]))
+
+
 def _serve(cfg, dev, batch: int, prompt: int, seq_len: int, tol: float,
-           steps: int = SERVE_STEPS, floor_chunk=None) -> dict:
+           steps: int = SERVE_STEPS, floor=None, routing: bool = False
+           ) -> dict:
     """One family's main path at ``cfg``'s width: the counted bf16 run
     through the kernels, then the float32 reruns (kernels, plain
-    versions), teacher-forced with its tokens; with ``floor_chunk``, one
-    more plain run whose mLSTM takes chunks of that length."""
+    versions), teacher-forced with its tokens; with ``floor`` (a name and
+    a context manager's factory), one more plain run under that context,
+    as exact a form as the plain run's; with ``routing``, the MoE routing
+    of the two float32 runs compared (``_flips``)."""
     from repro_torch.models.model import build_model
+    gc.collect()        # what earlier phases left unreachable
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
     gen = torch.Generator(device=dev).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             generator=gen, device=dev, dtype=torch.int32)
@@ -2284,20 +2527,27 @@ def _serve(cfg, dev, batch: int, prompt: int, seq_len: int, tol: float,
     plain = build_model(cfg32, dev, backend="ref")
     plain.load_params(state)
     t0 = time.perf_counter()
-    ko, _, _, _ = _generate(kern, prompts, seq_len, steps, forced=toks)
-    po, _, _, _ = _generate(plain, prompts, seq_len, steps, forced=toks)
-    rerun = _compare(cfg, ko, po, tol)
-    rerun["seconds"] = time.perf_counter() - t0
-    if floor_chunk is not None:
-        chunked = functools.partial(MLSTM._ref.mlstm_chunkwise_ref,
-                                    chunk=floor_chunk)
-        with mock.patch.object(MLSTM._ref, "mlstm_chunkwise_ref", chunked):
+    with _Routing() as rk:
+        ko, _, _, _ = _generate(kern, prompts, seq_len, steps, forced=toks)
+    with _Routing() as rp:
+        po, _, _, _ = _generate(plain, prompts, seq_len, steps, forced=toks)
+    flips = _flips(cfg, cfg.num_layers, rk.calls, rp.calls) if routing \
+        else None
+    del rk, rp
+    floor_err = None
+    if floor is not None:
+        with floor[1]():
             fo, _, _, _ = _generate(plain, prompts, seq_len, steps,
                                     forced=toks)
-        rerun["plain_floor"] = dict(
-            chunk=floor_chunk, max_abs_err_logits=max(
-                float((a - b).abs().max()) for a, b in zip(fo, po)))
+        floor_err = max(float((a - b).abs().max()) for a, b in zip(fo, po))
         del fo
+    rerun = _compare(cfg, ko, po, tol)
+    rerun["seconds"] = time.perf_counter() - t0
+    if floor is not None:
+        rerun["plain_floor"] = dict(form=floor[0],
+                                    max_abs_err_logits=floor_err)
+    if flips is not None:
+        rerun["routing"] = flips
     del kern, plain, state, ko, po
     torch.cuda.empty_cache()
     tokens = batch * steps
@@ -2306,7 +2556,8 @@ def _serve(cfg, dev, batch: int, prompt: int, seq_len: int, tol: float,
                 prefill_tokens_per_s=batch * prompt / pre_s,
                 decode_ms_per_step=dec_s * 1e3 / steps,
                 decode_tokens_per_s=tokens / dec_s, peak_gb=peak / 1e9,
-                launches=launches, prefill_by_block=by_block,
+                held_gb=held / 1e9, launches=launches,
+                prefill_by_block=by_block,
                 f32_rerun=rerun)
 
 
@@ -2328,14 +2579,71 @@ def phase_hybrid_serve(cfg=None, dev=DEV, steps: int = SERVE_STEPS) -> dict:
 def phase_ssm_serve(cfg=None, dev=DEV, steps: int = SERVE_STEPS) -> dict:
     """xLSTM-125M: 4 prompts of 1024 tokens, 32 decode steps."""
     cfg = cfg or get_config("xlstm_125m")
+    chunked = functools.partial(MLSTM._ref.mlstm_chunkwise_ref, chunk=32)
     out = _serve(cfg, dev, batch=4, prompt=1024, seq_len=1024 + steps,
-                 tol=SERVE_F32_TOL["ssm"], steps=steps, floor_chunk=32)
+                 tol=SERVE_F32_TOL["ssm"], steps=steps,
+                 floor=("mlstm chunks of 32", lambda: mock.patch.object(
+                     MLSTM._ref, "mlstm_chunkwise_ref", chunked)))
     n_mlstm = _layer_kinds(cfg).count("mlstm")
     want = {"rg_lru": 0, "flash_attention": 0, "paged_decode_attention": 0,
             "mlstm": n_mlstm}
     check(out["launches"] == want and n_mlstm > 0,
           f"ssm launches {out['launches']} != {want}")
     return out
+
+
+#: the dense family's runs: (arch, layers kept or None for all, prompts,
+#: prompt tokens, ring (seq_len), decode steps). Danube's prompts of 4608
+#: pass its window of 4096, which is its ring, so the window binds in
+#: prefill and decode; Qwen1.5-110B (~220 GB in bf16) keeps 4 of its 80
+#: layers at full width.
+DENSE_RUNS = (("h2o_danube_1_8b", None, 2, 4608, 4608 + 32, 32),
+              ("granite_3_8b", None, 2, 512, 512 + 16, 16),
+              ("qwen1_5_110b", 4, 2, 512, 512 + 16, 16))
+#: the moe family's runs, as DENSE_RUNS: OLMoE-1B-7B whole; Grok-1-314B
+#: (~9.7 GB a layer in bf16) at full width with 2 of its 64 layers, which
+#: covers its logit softcap and its 8 experts of width 32768
+MOE_RUNS = (("olmoe_1b_7b", None, 2, 1024, 1024 + 32, 32),
+            ("grok_1_314b", 2, 2, 512, 512 + 16, 16))
+
+
+def _family_serve(family: str, runs, dev, **kw) -> dict:
+    """Each run of ``runs`` through ``_serve`` (its depth cut recorded),
+    with flash launches = layers and decode launches = layers x steps;
+    the launches summed over the runs."""
+    out, total = {}, {}
+    for arch, layers, batch, prompt, seq_len, steps in runs:
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, num_layers=layers)
+        res = _serve(cfg, dev, batch=batch, prompt=prompt, seq_len=seq_len,
+                     tol=SERVE_F32_TOL[family], steps=steps, **kw)
+        want = {"rg_lru": 0, "flash_attention": cfg.num_layers,
+                "paged_decode_attention": cfg.num_layers * steps,
+                "mlstm": 0}
+        check(res["launches"] == want,
+              f"{arch} launches {res['launches']} != {want}")
+        res["layers"] = dict(run=cfg.num_layers, config=full.num_layers)
+        out[arch] = res
+        for k, n in res["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return dict(runs=out, launches=total)
+
+
+def phase_dense_serve(dev=DEV, runs=DENSE_RUNS) -> dict:
+    """H2O-Danube-1.8B, Granite-3-8B and Qwen1.5-110B (4 layers) at full
+    width through the kernels, each rerun in float32."""
+    return _family_serve("dense", runs, dev)
+
+
+def phase_moe_serve(dev=DEV, runs=MOE_RUNS) -> dict:
+    """OLMoE-1B-7B and Grok-1-314B (2 layers) at full width through the
+    kernels, each rerun in float32 with its routing flips counted and the
+    floor of a plain run whose router logits are float64."""
+    return _family_serve(
+        "moe", runs, dev, routing=True,
+        floor=("router logits in float64", lambda: mock.patch.object(
+            MOE, "_router_logits", _router_f64)))
 
 
 def _layer_kinds(cfg) -> list:
@@ -2390,15 +2698,17 @@ def main() -> int:
                       ("serving_profile", phase_serving_profile),
                       ("rg_lru", phase_rg_lru), ("mlstm", phase_mlstm),
                       ("hybrid_serve", phase_hybrid_serve),
-                      ("ssm_serve", phase_ssm_serve)):
+                      ("ssm_serve", phase_ssm_serve),
+                      ("dense_serve", phase_dense_serve),
+                      ("moe_serve", phase_moe_serve)):
         t0 = time.perf_counter()
         results[phase] = fn()
         emit(phase, seconds=time.perf_counter() - t0, **results[phase])
 
     # launches of each kernel on its main paths: the wavefront kernels in
     # HAMMER2K x 4 policies, the serving kernels in the full-width A/B, the
-    # attention kernels also in the hybrid run, rg_lru in the hybrid run,
-    # mlstm in the ssm run (each run counted from 0)
+    # attention kernels also in the hybrid, dense and moe runs, rg_lru in
+    # the hybrid run, mlstm in the ssm run (each run counted from 0)
     paths = {"HAMMER2K": results["scale"]["HAMMER2K"]["launches"],
              "STRESS": results["api"]["stress"]["launches"],
              "fig7_quick": {"event_loop": results["fig7"]["launches"]},
@@ -2407,7 +2717,9 @@ def main() -> int:
              "sharded": results["sharded"]["launches"],
              "serving": results["serving"]["launches"],
              "hybrid_serve": results["hybrid_serve"]["launches"],
-             "ssm_serve": results["ssm_serve"]["launches"]}
+             "ssm_serve": results["ssm_serve"]["launches"],
+             "dense_serve": results["dense_serve"]["launches"],
+             "moe_serve": results["moe_serve"]["launches"]}
     measured = {"wave_queue": (results["wave_queue"], F32_OPS_PER_S),
                 "wave_cache": (results["wave_cache"], F32_OPS_PER_S),
                 "medic_gather": (results["medic_gather"], BF16_OPS_PER_S),

@@ -1,1 +1,2 @@
-"""Model configs of the port (``repro.configs``): the dense family so far."""
+"""Model configs of the port (``repro.configs``): the dense, moe, hybrid
+and ssm families."""

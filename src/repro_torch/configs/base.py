@@ -3,8 +3,9 @@
 ``ModelConfig`` keeps every field of the reference, so a config built
 here describes the same architecture as the reference's, field for field,
 and ``reduced`` cuts it to the same small size. ``get_config`` returns the
-configs the port can build (the dense, hybrid and ssm families); the
-others raise until their family is ported (ROADMAP A9). ``OptimizerConfig``, ``TrainConfig``, ``MeshConfig`` and
+configs the port can build (the dense, moe, hybrid and ssm families);
+the encoder-decoder and vlm archs raise until their family is ported
+(ROADMAP A9). ``OptimizerConfig``, ``TrainConfig``, ``MeshConfig`` and
 ``MedicConfig`` are not ported yet.
 """
 from __future__ import annotations
@@ -31,7 +32,7 @@ class ModelConfig:
       encdec  -- Whisper-style encoder-decoder (audio frontend stubbed)
       vlm     -- Llama-3.2-Vision-style: self-attn stack + interleaved
                  cross-attention to (stubbed) image patch embeddings
-    ``dense``, ``hybrid`` and ``ssm`` are ported so far.
+    ``dense``, ``moe``, ``hybrid`` and ``ssm`` are ported so far.
     """
 
     name: str
@@ -145,7 +146,9 @@ ARCH_IDS = (
 )
 
 #: the archs whose config module the port has (ROADMAP A9)
-PORTED_ARCHS = ("qwen3_1_7b", "recurrentgemma_2b", "xlstm_125m")
+PORTED_ARCHS = ("grok_1_314b", "olmoe_1b_7b", "recurrentgemma_2b",
+                "h2o_danube_1_8b", "qwen1_5_110b", "qwen3_1_7b",
+                "granite_3_8b", "xlstm_125m")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -101,3 +101,21 @@ def observe(state: ClassifierState, warp_id, is_hit, *,
         ratio=torch.where(due, ratio_now, state.ratio),
         windows=state.windows + due.to(I32),
         sampled=torch.where(due, 0, sampled).to(I32))
+
+
+def force_classify(state: ClassifierState, *, mostly_hit_threshold=0.8,
+                   mostly_miss_threshold=0.2, min_samples: int = 1
+                   ) -> ClassifierState:
+    """Classify immediately from whatever counts exist (end-of-window):
+    warps with at least ``min_samples`` cache-path samples take the type
+    and ratio of their current counts; the others keep theirs. Counters
+    are left as they are."""
+    ratio_now = state.hits.to(F32) / torch.clamp_min(state.sampled, 1)
+    new_type = WT.classify(ratio_now, state.sampled,
+                           mostly_hit_threshold=mostly_hit_threshold,
+                           mostly_miss_threshold=mostly_miss_threshold,
+                           min_samples=min_samples)
+    keep = state.sampled < min_samples
+    return state._replace(
+        warp_type=torch.where(keep, state.warp_type, new_type),
+        ratio=torch.where(keep, state.ratio, ratio_now))

@@ -1,4 +1,4 @@
-"""Block definitions, in torch (the dense, hybrid and ssm blocks of
+"""Block definitions, in torch (the dense, moe, hybrid and ssm blocks of
 ``repro.models.blocks``).
 
 Block apply signature: (cfg, p, x, aux, cache) -> (x, cache)
@@ -14,9 +14,10 @@ Caches are per-layer slices of the stacked cache handed in by the stack
 loop, and are updated IN PLACE (the reference returns new arrays; writing
 into the slice saves a copy of the whole cache per step).
 
-Ported: the dense layer, RecurrentGemma's RG-LRU block and local
-attention, and xLSTM's mLSTM and sLSTM blocks; the other families' blocks
-(MoE, encoder-decoder, VLM cross-attention) wait for ROADMAP A9.
+Ported: the dense and MoE layers, RecurrentGemma's RG-LRU block and local
+attention, and xLSTM's mLSTM and sLSTM blocks; the encoder-decoder and VLM
+cross-attention blocks wait for ROADMAP A9. The serve path drops the MoE
+layer's aux loss, as the reference's ``prefill`` and ``decode`` do.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as REC
 from repro_torch.models import xlstm as XL
 from repro_torch.models.stack import BlockDef
@@ -64,12 +66,14 @@ def _self_attention(cfg, p, x, aux, cache, *, window=None, use_rope=True,
         return L.attn_out(p, o), cache
 
     # decode: write the new kv at write_slot, attend over the ring through
-    # the paged kernel. Exact for full attention (Model.decode refuses
-    # sliding-window configs) and for the hybrid's local attention: its
-    # ring holds W = min(seq_len, local_window) <= window slots, so every
-    # filled slot holds a position q - k < window, and the reference's
-    # windowed mask over the ring reduces to the filled prefix
-    # ``lengths = min(len + 1, W)``, as for full attention.
+    # the paged kernel. The ring holds the last W positions, q - W + 1 ..
+    # q, in its filled slots, so every one is at or before the query; with
+    # a window (dense SWA: W = min(seq_len, sliding_window); the hybrid's
+    # local attention: W = min(seq_len, local_window)) W <= window, so q -
+    # k <= W - 1 < window too. The reference's masks over the ring (k >=
+    # 0, q >= k, q - k < window) therefore reduce to the filled prefix
+    # ``lengths = min(len + 1, W)``, with or without a window
+    # (Model.decode checks W <= window).
     slot = aux["write_slot"]                                     # [B]
     _scatter_ring(cache["k"], k, slot[:, None])
     _scatter_ring(cache["v"], v, slot[:, None])
@@ -93,7 +97,7 @@ def _kv_cache_init(cfg, batch, w, dtype, device):
 
 
 # ---------------------------------------------------------------------------
-# dense transformer layer
+# dense / moe transformer layer
 # ---------------------------------------------------------------------------
 
 def _norm_params(gen, cfg):
@@ -125,6 +129,25 @@ def dense_layer_cache(cfg, batch, shape_cfg, device):
     if cfg.sliding_window is not None:
         w = min(w, cfg.sliding_window)
     return _kv_cache_init(cfg, batch, w, getattr(torch, cfg.dtype), device)
+
+
+def moe_layer_init(gen: Optional[torch.Generator], cfg):
+    """A dense layer's parameters with the MoE FFN (``moe``) in place of
+    the MLP."""
+    ap = L.attn_params(gen, cfg)
+    mp = MOE.moe_params(gen, cfg)
+    return {"norm1": _norm_params(gen, cfg), "attn": ap,
+            "norm2": _norm_params(gen, cfg), "moe": mp}
+
+
+def moe_layer_apply(cfg, p, x, aux, cache):
+    h = L.rms_norm(x, p.norm1, cfg.norm_eps)
+    a, cache = _self_attention(cfg, p.attn, h, aux, cache,
+                               window=cfg.sliding_window)
+    x = x + a
+    h = L.rms_norm(x, p.norm2, cfg.norm_eps)
+    y, _ = MOE.moe_apply(cfg, p.moe, h)
+    return x + y, cache
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -161,6 +184,13 @@ class DenseLayer(_Block):
     ``mlp.{w_gate,w_up,w_down}``)."""
     init_fn = staticmethod(dense_layer_init)
     apply_fn = staticmethod(dense_layer_apply)
+
+
+class MoELayer(_Block):
+    """One MoE decoder layer: pre-norm attention and the MoE FFN
+    (``norm1``, ``attn``, ``norm2``, ``moe.{router,w_gate,w_up,w_down}``)."""
+    init_fn = staticmethod(moe_layer_init)
+    apply_fn = staticmethod(moe_layer_apply)
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +303,7 @@ class SLSTMBlock(_Block):
 
 BLOCKS = {
     "layer": BlockDef("layer", DenseLayer, dense_layer_cache),
+    "moe_layer": BlockDef("moe_layer", MoELayer, dense_layer_cache),
     "rec": BlockDef("rec", RecBlock, rec_block_cache),
     "attn": BlockDef("attn", LocalAttn, local_attn_cache),
     "mlstm": BlockDef("mlstm", MLSTMBlock, mlstm_block_cache),

@@ -1,5 +1,6 @@
-"""The model API, in torch (the dense, hybrid and ssm families of
-``repro.models.model``).
+"""The model API, in torch (the dense, moe, hybrid and ssm families of
+``repro.models.model``; the encoder-decoder and vlm families wait for
+ROADMAP A9).
 
 ``build_model(cfg, device, backend)`` returns a ``Model`` (an
 ``nn.Module``) on ``device`` — the card unless the caller asks for
@@ -21,7 +22,8 @@ The cache dict always contains:
 (as numpy arrays) into the port's state dict, so both packages can run the
 same weights. ``backend`` is the gate of the model's kernels — flash and
 paged decode attention, the RG-LRU scan, the chunkwise mLSTM —
-(``"auto"`` | ``"ref"`` | ``"cuda"``).
+(``"auto"`` | ``"ref"`` | ``"cuda"``). The MoE FFN has no kernel (the
+reference's expert products are einsums outside Pallas too).
 """
 from __future__ import annotations
 
@@ -48,6 +50,8 @@ def _stackdef(cfg: ModelConfig) -> StackDef:
     fam = cfg.family
     if fam == "dense":
         return StackDef(("layer",), cfg.num_layers, B.BLOCKS)
+    if fam == "moe":
+        return StackDef(("moe_layer",), cfg.num_layers, B.BLOCKS)
     if fam in ("hybrid", "ssm"):
         pattern = cfg.block_pattern or (("rec", "rec", "attn")
                                         if fam == "hybrid"
@@ -179,15 +183,12 @@ class Model(nn.Module):
 
         Attention reads the ring through the paged decode kernel with
         pages of ``page`` slots (``None``: the whole ring is one page); W
-        must be a multiple of ``page``. Sliding-window configs are refused:
-        their ring's masks are not a length prefix (the hybrid's local
-        window is: its ring is no longer than the window).
+        must be a multiple of ``page``. A windowed attention (dense SWA,
+        the hybrid's local window) needs a ring no longer than its window,
+        as ``init_cache`` makes it: then the window masks nothing the ring
+        holds, and the filled prefix is what the reference attends to.
         """
         cfg = self.cfg
-        if cfg.sliding_window is not None:
-            raise NotImplementedError(
-                "decode through the paged kernel needs full attention; "
-                "sliding-window decode is not ported yet (ROADMAP A9)")
         aux = self._aux_for(None, "decode", cache=cache, tokens=tokens)
         b = tokens.shape[0]
         w = cache["kv_pos"].shape[1]
@@ -195,6 +196,9 @@ class Model(nn.Module):
         if page < 1 or w % page:
             raise ValueError(f"ring of {w} slots is not a whole number of "
                              f"pages of {page}")
+        if self._window(ShapeConfig("decode", w, b, "decode")) < w:
+            raise ValueError(f"ring of {w} slots is longer than the "
+                             "attention window")
         slot = aux["write_slot"]
         rows = torch.arange(b, device=slot.device)
         kv_pos = cache["kv_pos"].clone()

@@ -13,8 +13,11 @@ at block granularity by ``MedicPoolManager``:
     skip decode steps (the warp-stall analogue).
 
 Prefill attention runs the flash-attention kernel and every decode step
-the paged decode kernel, with the ring cache viewed as pages of
-``PoolConfig.block_tokens`` slots. The host-side control flow is the
+the paged decode kernel, with the ring cache of ``max_len`` slots viewed
+as pages of ``gcd(max_len, block_tokens)`` slots: a pool block is
+``block_tokens / page`` pages, the ring's last block fewer when
+``max_len`` is not a multiple of ``block_tokens`` (the reference cuts it
+short there too). The host-side control flow is the
 reference's, line for line — admissions, ``_block_keys``, residency
 transactions, ``fetch_pending``, stream-out after the step, ``snapshot`` —
 so the pool metrics match the reference's bitwise. They do not depend on
@@ -34,6 +37,7 @@ gates all three kernels (``"auto"`` | ``"ref"`` | ``"cuda"``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -75,15 +79,16 @@ COUNTS = EngineCounts()
 
 
 def offload_table(n_layers: int, n_slots: int, pages: int, slot: int,
-                  idx: int, device) -> torch.Tensor:
-    """The offload read's block table, i32[n_layers, 1]: every layer's
-    cache [L, slots, pages * page, ...] seen as one pool of blocks, block
-    ``idx`` of ``slot`` in each layer, built on ``device`` by one
-    ``arange``."""
+                  idx: int, n_pages: int, device) -> torch.Tensor:
+    """The offload read's block table, i32[n_layers, n_pages]: every
+    layer's cache [L, slots, pages * page, ...] seen as one pool of pages,
+    pages ``idx .. idx + n_pages - 1`` of ``slot`` in each layer, built on
+    ``device``."""
     stride = n_slots * pages
     start = slot * pages + idx
-    return torch.arange(start, start + n_layers * stride, stride,
-                        dtype=torch.int32, device=device).view(n_layers, 1)
+    first = torch.arange(start, start + n_layers * stride, stride,
+                         dtype=torch.int32, device=device).view(n_layers, 1)
+    return first + torch.arange(n_pages, dtype=torch.int32, device=device)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
@@ -101,11 +106,6 @@ class ServeEngine:
                  params=None):
         if cfg.family != "dense":
             raise NotImplementedError("the serving engine targets dense LMs")
-        if ecfg.max_len % pool_cfg.block_tokens:
-            raise ValueError(
-                f"max_len {ecfg.max_len} is not a multiple of block_tokens "
-                f"{pool_cfg.block_tokens}: the decode kernel reads the ring "
-                "as whole pool blocks")
         self.cfg = cfg
         self.ecfg = ecfg
         self.device = resolve_device(device)
@@ -117,8 +117,16 @@ class ServeEngine:
         self.shape = ShapeConfig("serve", ecfg.max_len, ecfg.max_slots,
                                  "decode")
         self.cache = self.model.init_cache(ecfg.max_slots, self.shape)
+        if self.cache["kv_pos"].shape[1] != ecfg.max_len:
+            raise ValueError(
+                f"the model's ring holds {self.cache['kv_pos'].shape[1]} "
+                f"slots, not max_len {ecfg.max_len}: its sliding window is "
+                "shorter (the engine's blocks index a ring of max_len)")
         self.lens = np.zeros(ecfg.max_slots, np.int64)   # host mirror of len
         self.bs = pool_cfg.block_tokens
+        # the ring's page: a pool block is a whole number of pages, and
+        # the ring too
+        self.page = math.gcd(ecfg.max_len, self.bs)
         # pseudo-slots for shared prefixes sit after the real slots
         self.pool = MedicPoolManager(pool_cfg, ecfg.max_slots + 8,
                                      on_evict=self._offload)
@@ -138,14 +146,19 @@ class ServeEngine:
             return  # shared pseudo-slot: accounting only
         kv = self._kv_leaves()
         n_layers, n_slots = kv["k"].shape[:2]
-        pages = self.ecfg.max_len // self.bs
-        tbl = offload_table(n_layers, n_slots, pages, slot, idx, self.device)
-        pool_shape = (n_layers * n_slots * pages, self.bs) + \
+        pages = self.ecfg.max_len // self.page
+        per_block = self.bs // self.page
+        first = idx * per_block
+        n = min(per_block, pages - first)   # the ring's last block: fewer
+        tbl = offload_table(n_layers, n_slots, pages, slot, first, n,
+                            self.device)
+        pool_shape = (n_layers * n_slots * pages, self.page) + \
             tuple(kv["k"].shape[3:])
         kv_blk = medic_gather_pools((kv["k"].view(pool_shape),
                                      kv["v"].view(pool_shape)), tbl,
                                     backend=self.backend)
-        self.host_store[key] = kv_blk[:, :, 0].cpu()
+        # [K/V, L, n pages, page, ...] -> [K/V, L, n * page tokens, ...]
+        self.host_store[key] = kv_blk.flatten(2, 3).cpu()
         lo = idx * self.bs
         kv["k"][:, slot, lo:lo + self.bs] = 0
         kv["v"][:, slot, lo:lo + self.bs] = 0
@@ -241,7 +254,7 @@ class ServeEngine:
         toks = torch.zeros((self.ecfg.max_slots, 1), dtype=torch.int32,
                            device=self.device)
         old = self.cache
-        logits, new = self.model.decode(toks, old, page=self.bs)
+        logits, new = self.model.decode(toks, old, page=self.page)
         mask = torch.from_numpy(active).to(self.device)
         new["len"] = torch.where(mask, new["len"], old["len"])
         new["kv_pos"] = torch.where(mask[:, None], new["kv_pos"],

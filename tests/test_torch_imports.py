@@ -37,7 +37,9 @@ def test_every_module_is_listed():
                  "repro_torch.serving.pool_ref",
                  "repro_torch.serving.sim.step",
                  "repro_torch.sharding",
-                 "repro_torch.launch.mesh"):
+                 "repro_torch.launch.mesh",
+                 "repro_torch.models.moe",
+                 "repro_torch.configs.olmoe_1b_7b"):
         assert must in MODULES, must
 
 
@@ -51,12 +53,11 @@ def test_module_imports_first_in_a_fresh_process(ctx, module):
         f"the captured stderr), exit code {proc.exitcode}"
 
 
-#: run in a fresh child: import the sharded-sweep modules and the API, then
-#: exit 1 if anything of JAX or of the reference package was imported
+#: run in a fresh child: import the modules of MODULES_ (a tuple of names),
+#: then exit 1 if anything of JAX or of the reference package was imported
 _NO_REFERENCE = """
 import importlib, sys
-for m in ("repro_torch.sharding", "repro_torch.launch.mesh",
-          "repro_torch.launch", "repro_torch.api"):
+for m in MODULES_:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -66,10 +67,30 @@ if bad:
 """
 
 
-def test_sharded_sweep_modules_import_neither_jax_nor_the_reference(ctx):
-    proc = ctx.Process(target=exec, args=(_NO_REFERENCE,))
+def _imports_no_reference(ctx, modules) -> int:
+    proc = ctx.Process(target=exec, args=(
+        _NO_REFERENCE.replace("MODULES_", repr(tuple(modules))),))
     proc.start()
     proc.join(120)
-    assert proc.exitcode == 0, \
+    return proc.exitcode
+
+
+def test_sharded_sweep_modules_import_neither_jax_nor_the_reference(ctx):
+    code = _imports_no_reference(ctx, (
+        "repro_torch.sharding", "repro_torch.launch.mesh",
+        "repro_torch.launch", "repro_torch.api"))
+    assert code == 0, \
         "importing repro_torch.sharding / launch.mesh / api pulled in jax " \
-        f"or repro (see the captured stderr), exit code {proc.exitcode}"
+        f"or repro (see the captured stderr), exit code {code}"
+
+
+def test_model_modules_import_neither_jax_nor_the_reference(ctx):
+    """The model zoo, every ported config and the serving engine."""
+    from repro_torch.configs.base import PORTED_ARCHS
+    code = _imports_no_reference(
+        ctx, [m for m in MODULES if m.startswith("repro_torch.models")]
+        + [f"repro_torch.configs.{a}" for a in PORTED_ARCHS]
+        + ["repro_torch.serving.engine"])
+    assert code == 0, \
+        "importing repro_torch.models / configs / serving.engine pulled in " \
+        f"jax or repro (see the captured stderr), exit code {code}"

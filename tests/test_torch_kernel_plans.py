@@ -356,7 +356,7 @@ def test_gather_pools_at_the_offload_shape_with_holes(dtype, n_pools):
     n_layers, slots, pages, page = 4, 4, 5, 16
     jp, tp = _pools(rng, n_pools, (n_layers * slots * pages, page, 2, 32),
                     dtype)
-    offload = ENG.offload_table(n_layers, slots, pages, 2, 3, CPU)
+    offload = ENG.offload_table(n_layers, slots, pages, 2, 3, 1, CPU)
     holes = rng.integers(0, n_layers * slots * pages, (3, 6))
     holes[rng.random((3, 6)) < 0.3] = -1
     for tbl in (offload, torch.from_numpy(holes.astype(np.int32)),
@@ -487,6 +487,15 @@ def test_offload_table_on_the_device_equals_the_host_built_one(
         for idx in sorted({0, pages - 1, pages // 3}):
             host = ((torch.arange(n_layers, dtype=torch.int32) * n_slots
                      + slot) * pages + idx).view(n_layers, 1)
-            dev = ENG.offload_table(n_layers, n_slots, pages, slot, idx, CPU)
+            dev = ENG.offload_table(n_layers, n_slots, pages, slot, idx, 1,
+                                    CPU)
             assert dev.dtype == torch.int32 and dev.is_contiguous()
             assert torch.equal(dev, host)
+            # a block of several pages (a ring read in pages smaller than
+            # a pool block): its consecutive pages in every layer
+            n = pages - idx
+            many = ENG.offload_table(n_layers, n_slots, pages, slot, idx, n,
+                                     CPU)
+            assert many.dtype == torch.int32 and many.is_contiguous()
+            assert torch.equal(many, host + torch.arange(n,
+                                                         dtype=torch.int32))

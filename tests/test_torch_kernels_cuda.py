@@ -355,48 +355,70 @@ def test_recurrent_models_kernels_match_plain_on_card(cuda_device, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch,window", [("h2o_danube_1_8b", 256),
+                                         ("granite_3_8b", None),
+                                         ("olmoe_1b_7b", None)])
+def test_dense_and_moe_models_kernels_match_plain_on_card(cuda_device, arch,
+                                                          window):
+    """Three layers at full width in float32: prefill of 300 tokens and 4
+    decode steps through the kernels and through their plain versions.
+    Danube's window is cut to 256, so its ring (the window) wraps in
+    prefill and in decode; the full-attention models get a ring of 304,
+    which holds every position. Logits within the family's SERVE_F32_TOL
+    (chip_smoke.py's ``_compare``); for OLMoE every routing flip between
+    the two runs is a near-tie (``_flips``: gap under FLIP_GAP)."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(CS.get_config(arch), num_layers=3,
+                              dtype="float32")
+    if window is not None:
+        cfg = dataclasses.replace(cfg, sliding_window=window)
+    kern = build_model(cfg, cuda_device, backend="cuda")
+    state = kern.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    plain = build_model(cfg, cuda_device, backend="ref")
+    plain.load_params(state)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 300), generator=gen,
+                            dtype=torch.int32, device=cuda_device)
+    with CS._Routing() as rk:
+        ko, toks, _, _ = CS._generate(kern, prompts, 304, 4)
+    with CS._Routing() as rp:
+        po, _, _, _ = CS._generate(plain, prompts, 304, 4, forced=toks)
+    ring = kern.init_cache(2, ShapeConfig("serve", 304, 2, "decode"))
+    assert ring["kv_pos"].shape[1] == (window or 304)
+    if cfg.family == "moe":
+        CS._flips(cfg, cfg.num_layers, rk.calls, rp.calls)
+    CS._compare(cfg, ko, po, CS.SERVE_F32_TOL[cfg.family])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,hkv,g,d,page,p", [(4, 8, 2, 128, 16, 28),
                                               (2, 1, 10, 256, 2048, 1),
                                               (2, 1, 10, 256, 16, 128),
-                                              (3, 2, 16, 64, 4, 40)])
+                                              (3, 2, 16, 64, 4, 40)]
+                         + CS.DECODE_SERVE)
 def test_decode_attention_split_edges_on_card(cuda_device, dtype, b, hkv, g,
                                               d, page, p):
-    """The split-KV kernel at lengths on its own splits' edges (1,
-    split - 1, split, split + 1, the full table), 0 beside a full row, and
-    holes among many short splits; rows with nothing live give zeros."""
+    """The split-KV kernel at lengths on its own splits' edges, 0 beside a
+    full row, and holes among many short splits (chip_smoke.py's
+    ``decode_edges``), at the serve paths' shapes too."""
     gen = torch.Generator(device=cuda_device).manual_seed(4)
-    plan = DEC.device_plan(cuda_device, b, hkv, page, p)
-    cap, sp = page * p, plan.split_len
-    n = b * p
-    q = CS._randn((b, hkv, g, d), dtype, gen, cuda_device)
-    kp = CS._randn((n, page, hkv, d), dtype, gen, cuda_device)
-    vp = CS._randn((n, page, hkv, d), dtype, gen, cuda_device)
-    tbl = torch.randperm(n, generator=gen, device=cuda_device).to(
-        torch.int32).view(b, p)
-    if p > 1:
-        tbl[0, 1::5] = -1
-    edges = [1, sp - 1, sp, sp + 1, 2 * sp, cap - 1, cap, 0]
-    for i in range(0, len(edges), b):
-        lens = (edges[i:i + b] + [cap] * b)[:b]
-        ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
-        out = DEC.paged_decode_attention_cuda(q, kp, vp, tbl, ln)
-        plain = DEC._ref.paged_decode_attention_ref(q, kp, vp, tbl, ln)
-        CS._close(out, plain, dtype, f"decode split {plan} {lens}")
-        for row, length in enumerate(lens):
-            if length == 0:
-                assert torch.count_nonzero(out[row]) == 0
+    CS.decode_edges(gen, cuda_device, b, hkv, g, d, page, p, dtype)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g", [1, 2, 10, 16])
+@pytest.mark.parametrize("g", [1, 2, 4, 6, 8, 10, 16])
 def test_flash_attention_bf16_groups_on_card(cuda_device, g):
     """The tensor-core kernel with G query heads folded into its rows: S
-    off the tile of 64, windows shorter than a key tile, D 64 to 256."""
+    off the tile of 64, windows shorter than a key tile, D 32 to 256
+    (80: Danube's)."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     for s, d, window, causal in ((100, 256, 16, True), (77, 128, None, True),
                                  (130, 64, 8, True), (333, 256, 100, True),
-                                 (45, 32, None, False)):
+                                 (45, 32, None, False), (333, 80, 100, True),
+                                 (200, 80, None, True)):
         q = CS._randn((2, s, 2 * g, d), torch.bfloat16, gen, cuda_device)
         k = CS._randn((2, s, 2, d), torch.bfloat16, gen, cuda_device)
         v = CS._randn((2, s, 2, d), torch.bfloat16, gen, cuda_device)

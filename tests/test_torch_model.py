@@ -3,6 +3,7 @@ layers, and prefill + decode through the model with the reference's
 weights carried across by ``params_from_numpy``. Tolerance: 1e-5 in
 float32, 2e-2 in bfloat16 (both rounding orders differ; bf16 rounds at
 different places in the two frameworks)."""
+import contextlib
 import dataclasses
 
 import jax
@@ -32,11 +33,14 @@ def _cfgs(**kw):
 # configs
 # ---------------------------------------------------------------------------
 
-def test_qwen3_config_matches_reference_field_for_field():
-    j, t = JCFG.get_config("qwen3_1_7b"), TCFG.get_config("qwen3-1.7b")
+@pytest.mark.parametrize("arch", TCFG.PORTED_ARCHS)
+def test_config_matches_reference_field_for_field(arch):
+    j, t = JCFG.get_config(arch), TCFG.get_config(arch.replace("_", "-"))
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
-    assert j.padded_vocab == t.padded_vocab == 152064
+    assert j.padded_vocab == t.padded_vocab
     assert t.num_params == count_params_analytic(j)
+    if arch == "qwen3_1_7b":
+        assert t.padded_vocab == 152064
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(num_layers=2),
@@ -49,8 +53,10 @@ def test_reduced_config_matches_reference(kw):
 
 
 def test_get_config_refuses_unported_and_unknown_archs():
-    with pytest.raises(NotImplementedError, match="A9"):
-        TCFG.get_config("whisper_tiny")
+    for arch in ("whisper_tiny", "llama_3_2_vision_11b"):
+        with pytest.raises(NotImplementedError, match="A9"):
+            TCFG.get_config(arch)
+    assert len(TCFG.PORTED_ARCHS) == 8
     with pytest.raises(ValueError, match="unknown arch"):
         TCFG.get_config("gpt5")
     assert set(TCFG.ARCH_IDS) == set(JCFG.ARCH_IDS)
@@ -133,8 +139,11 @@ def test_paged_route_equals_attention_decode(page, filled):
 # the model, with the reference's weights
 # ---------------------------------------------------------------------------
 
-def _models(dtype, num_layers=2):
-    jc, tc = _cfgs(num_layers=num_layers, dtype=dtype)
+def _models(dtype, num_layers=2, arch="qwen3_1_7b", **kw):
+    jc = JCFG.get_config(arch).reduced(num_layers=num_layers, dtype=dtype,
+                                       **kw)
+    tc = TCFG.get_config(arch).reduced(num_layers=num_layers, dtype=dtype,
+                                       **kw)
     jm = j_build(jc)
     jp = jm.init_params(jax.random.PRNGKey(0))
     tm = build_model(tc, "cpu")
@@ -152,25 +161,58 @@ def _close(a, b, dtype, what):
                                rtol=TOL[dtype], err_msg=what)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s,w,page", [(20, 32, 8), (20, 24, None),
-                                      (7, 8, 4)])
-def test_prefill_and_decode_match_reference(dtype, s, w, page):
+#: (arch, dtype, prompt s, ring w, page, config overrides) of each prefill
+#: + decode case. Danube's sliding window is 32 at the reduced size, so
+#: its ring of 32 wraps in prefill (a prompt of 40) and the window binds
+#: in both phases; OLMoE's prompt of 20 x 2 rows routes 80 assignments
+#: into 4 experts of capacity 32 (at capacity factor 0.5, of 16: the
+#: prefill drops assignments), and Grok adds the logit softcap.
+PREFILL_DECODE = (
+    [("qwen3_1_7b", dtype, s, w, page, {})
+     for dtype in ("float32", "bfloat16")
+     for s, w, page in ((20, 32, 8), (20, 24, None), (7, 8, 4))]
+    + [("granite_3_8b", "float32", 20, 32, 8, {}),
+       ("qwen1_5_110b", "float32", 20, 24, None, {}),
+       ("h2o_danube_1_8b", "float32", 40, 32, 8, {}),
+       ("olmoe_1b_7b", "float32", 20, 32, 8, {}),
+       ("olmoe_1b_7b", "float32", 20, 32, 8, {"capacity_factor": 0.5}),
+       ("olmoe_1b_7b", "bfloat16", 20, 24, 4, {}),
+       ("grok_1_314b", "float32", 7, 8, 4, {})])
+
+
+def _case_id(case):
+    """The qwen3 cases keep the ids they had before the other archs."""
+    arch, dtype, s, w, page, kw = case
+    tail = f"{s}-{w}-{page}-{dtype}"
+    if kw:
+        tail = "-".join(f"{k}{v}" for k, v in kw.items()) + "-" + tail
+    return tail if arch == "qwen3_1_7b" else f"{arch}-{tail}"
+
+
+@pytest.mark.parametrize("arch,dtype,s,w,page,kw", PREFILL_DECODE,
+                         ids=[_case_id(c) for c in PREFILL_DECODE])
+def test_prefill_and_decode_match_reference(arch, dtype, s, w, page, kw):
     """Prefill, then three decode steps (five when the ring wraps: prompt +
-    decode > W), comparing logits, the K/V cache, len and kv_pos."""
+    decode > W), comparing logits, the K/V cache, len and kv_pos. The MoE
+    family's bf16 reference runs op by op (``jax.disable_jit``: under
+    ``jit`` XLA rounds the expert products' bf16 elsewhere)."""
     from repro.configs.base import ShapeConfig as JShape
     from repro_torch.configs.base import ShapeConfig as TShape
-    jm, jp, tm = _models(dtype)
+    jm, jp, tm = _models(dtype, arch=arch, **kw)
+    op_by_op = jax.disable_jit if (jm.cfg.family == "moe"
+                                   and dtype == "bfloat16") \
+        else contextlib.nullcontext
     toks = np.random.default_rng(s).integers(1, 512, (2, s)).astype(np.int32)
     jc = jm.init_cache(2, JShape("serve", w, 2, "decode"))
     tcache = tm.init_cache(2, TShape("serve", w, 2, "decode"))
-    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
+    with op_by_op():
+        jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
     tl, tcache = tm.prefill({"tokens": torch.from_numpy(toks)}, tcache)
     _close(tl, jl, dtype, "prefill logits")
+    key = next(iter(tcache["stack"]["scan"]))
     steps = 3 if s + 3 <= w else 5
     for step in range(steps + 1):
-        jkv, tkv = jc["stack"]["scan"]["0_layer"], \
-            tcache["stack"]["scan"]["0_layer"]
+        jkv, tkv = jc["stack"]["scan"][key], tcache["stack"]["scan"][key]
         for n in ("k", "v"):
             _close(tkv[n], jkv[n], dtype, f"{n} after step {step}")
         np.testing.assert_array_equal(tcache["len"].numpy(), jc["len"])
@@ -179,7 +221,8 @@ def test_prefill_and_decode_match_reference(dtype, s, w, page):
         if step == steps:
             break
         t = np.full((2, 1), 3 + step, np.int32)
-        jl, jc = jm.decode(jp, jnp.asarray(t), jc)
+        with op_by_op():
+            jl, jc = jm.decode(jp, jnp.asarray(t), jc)
         tl, tcache = tm.decode(torch.from_numpy(t), tcache, page=page)
         _close(tl, jl, dtype, f"decode logits step {step}")
     assert s + steps <= w or int(tcache["len"][0]) > w
@@ -214,6 +257,23 @@ def test_params_from_numpy_carries_every_leaf():
     assert sum(p.numel() for p in state.values()) == n_ref
 
 
+def test_params_from_numpy_carries_the_moe_router_exactly():
+    jm, jp, tm = _models("bfloat16", num_layers=2, arch="olmoe_1b_7b")
+    state = dict(tm.named_parameters())
+    moe = jp["stack"]["scan"]["0_moe_layer"]["moe"]
+    for i in range(2):
+        r = state[f"layers.{i}.moe.router"]
+        assert r.dtype == torch.float32
+        np.testing.assert_array_equal(r.numpy(), np.asarray(moe["router"][i]))
+        for n in ("w_gate", "w_up", "w_down"):
+            w = state[f"layers.{i}.moe.{n}"]
+            assert w.dtype == torch.bfloat16
+            np.testing.assert_array_equal(
+                w.float().numpy(), np.asarray(moe[n][i], np.float32))
+    n_ref = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(jp))
+    assert sum(p.numel() for p in state.values()) == n_ref
+
+
 def test_model_refuses_what_it_does_not_run():
     _, tc = _cfgs(num_layers=1)
     m = build_model(tc, "cpu")
@@ -222,15 +282,16 @@ def test_model_refuses_what_it_does_not_run():
     cache = m.init_cache(1, ShapeConfig("s", 12, 1, "decode"))
     with pytest.raises(ValueError, match="pages"):
         m.decode(torch.zeros((1, 1), dtype=torch.int32), cache, page=5)
+    # a sliding-window ring longer than the window (init_cache never
+    # makes one) would let the window mask filled slots
     swa = dataclasses.replace(tc, sliding_window=8)
     ms = build_model(swa, "cpu")
     ms.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        ms.decode(torch.zeros((1, 1), dtype=torch.int32),
-                  ms.init_cache(1, ShapeConfig("s", 12, 1, "decode")))
-    moe = dataclasses.replace(tc, family="moe")
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_model(moe, "cpu")
+    with pytest.raises(ValueError, match="window"):
+        ms.decode(torch.zeros((1, 1), dtype=torch.int32), cache)
+    for fam in ("encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match="A9"):
+            build_model(dataclasses.replace(tc, family=fam), "cpu")
     with pytest.raises(ValueError, match="backend"):
         build_model(tc, "cpu", backend="pallas")
 

@@ -198,6 +198,40 @@ def test_observe_bitwise(i):
         CLF.min_probe_samples(torch.tensor(64.0), torch.tensor(8.0)))
 
 
+@pytest.mark.parametrize("min_samples", [1, 4])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_force_classify_bitwise(seed, min_samples):
+    """classifier.force_classify on seeded mid-window states (counts of 0
+    to 8 samples, so some warps sit under the floor and keep their label)
+    with both threshold pairs."""
+    rng = np.random.default_rng(seed)
+    n = 64
+    sampled = rng.integers(0, 9, n).astype(np.int32)
+    fields = dict(
+        hits=(sampled * rng.random(n)).round().astype(np.int32),
+        accesses=(sampled + rng.integers(0, 5, n)).astype(np.int32),
+        warp_type=rng.integers(0, 5, n).astype(np.int32),
+        ratio=rng.random(n).astype(np.float32),
+        windows=rng.integers(0, 3, n).astype(np.int32),
+        sampled=sampled)
+    fields["hits"][:4] = fields["sampled"][:4]      # ratio exactly 1
+    fields["hits"][4:8] = 0                         # ratio exactly 0
+    jst = JCLF.ClassifierState(**{k: jnp.asarray(v)
+                                  for k, v in fields.items()})
+    st = CLF.ClassifierState(**{k: torch.from_numpy(v)
+                                for k, v in fields.items()})
+    for kw in (dict(), dict(mostly_hit_threshold=0.7,
+                            mostly_miss_threshold=0.3)):
+        jf = JCLF.force_classify(jst, min_samples=min_samples, **kw)
+        tf = CLF.force_classify(st, min_samples=min_samples, **kw)
+        for f in JCLF.ClassifierState._fields:
+            _eq(getattr(jf, f), getattr(tf, f), f"force_classify.{f}")
+        kept = sampled < min_samples
+        assert kept.any() and not kept.all()
+        np.testing.assert_array_equal(tf.warp_type.numpy()[kept],
+                                      fields["warp_type"][kept])
+
+
 def test_request_index_helpers_bitwise():
     rng = np.random.default_rng(3)
     addr = np.concatenate([np.asarray([-1, -32, -33, 0, 31, 32, 2**31 - 1],

@@ -194,11 +194,71 @@ def test_engine_cuda_backend_does_not_fall_back_on_the_cpu():
                 max_steps=5)
 
 
+#: a ring that is not a whole number of pool blocks: 100 slots, blocks of
+#: 16 (the last one 4 tokens long); chat requests of 64-96 prompt tokens
+#: and 32-96 decode tokens wrap it, and a budget of 8 blocks offloads and
+#: restores every block index, the short one included
+RAGGED = dict(ecfg=dict(max_slots=2, max_len=100),
+              pool=dict(budget_blocks=8, block_tokens=16,
+                        sampling_interval=8, policy="medic"),
+              wl=dict(n_requests=4, chat_frac=1.0), max_steps=400)
+STAMPS = ("rid", "slot", "enqueue_step", "first_token_step", "finish_step",
+          "generated", "stall_steps")
+
+
+def test_engine_runs_a_ring_that_is_not_whole_blocks():
+    """The reference runs a max_len that is not a multiple of
+    block_tokens, its offloads cut short at the ring's end; the port reads
+    the ring in pages of gcd(max_len, block_tokens) = 4 and matches it:
+    every pool integer, every request's stamps, the K/V ring (bf16, one
+    layer), len and kv_pos."""
+    jcfg = j_get_config("qwen3_1_7b").reduced(num_layers=1)
+    jreqs = j_generate(JWorkload(**RAGGED["wl"]), seed=0)
+    jeng = JServeEngine(jcfg, JEngineConfig(**RAGGED["ecfg"]),
+                        JPoolConfig(**RAGGED["pool"]))
+    jsnap = jeng.run(jreqs, max_steps=RAGGED["max_steps"])
+    cfg = get_config("qwen3_1_7b").reduced(num_layers=1)
+    ENG.COUNTS.reset()
+    eng = ServeEngine(cfg, EngineConfig(**RAGGED["ecfg"]),
+                      PoolConfig(**RAGGED["pool"]), device="cpu",
+                      params=params_from_numpy(
+                          jax.tree.map(np.asarray, jeng.params), cfg, "cpu"))
+    short, offload = [], eng._offload
+
+    def counted(key):          # offloads of a real slot's short last block
+        if key[1] == 6 and key[0] < 2:
+            short.append(key)
+        offload(key)
+    eng._offload = eng.pool.on_evict = counted
+    reqs = generate_requests(ServeWorkload(**RAGGED["wl"]), seed=0)
+    snap = eng.run(reqs, max_steps=RAGGED["max_steps"])
+    assert eng.page == 4
+    _snap_equal(jsnap, snap)
+    assert snap["completed"] == 3 and snap["bypassed_blocks"] > 0
+    assert short and ENG.COUNTS.restores > 0
+    assert int(eng.lens.max()) > 100                # the rings wrapped
+    for a, b in zip(sorted(jreqs, key=lambda r: r.rid),
+                    sorted(reqs, key=lambda r: r.rid)):
+        assert [getattr(a, f) for f in STAMPS] == \
+            [getattr(b, f) for f in STAMPS], a.rid
+    kv, jkv = eng._kv_leaves(), jeng._kv_leaves()
+    for n in ("k", "v"):
+        ref = np.asarray(jkv[n], np.float32)
+        np.testing.assert_allclose(kv[n].float().numpy(), ref, atol=2e-2,
+                                   rtol=2e-2, err_msg=n)
+        np.testing.assert_array_equal(kv[n].float().numpy() == 0, ref == 0)
+    np.testing.assert_array_equal(eng.cache["len"].numpy(),
+                                  jeng.cache["len"])
+    np.testing.assert_array_equal(eng.cache["kv_pos"].numpy(),
+                                  jeng.cache["kv_pos"])
+
+
 def test_engine_refuses_what_it_does_not_run():
     cfg = get_config("qwen3_1_7b").reduced(num_layers=1)
-    with pytest.raises(ValueError, match="block_tokens"):
-        ServeEngine(cfg, EngineConfig(max_slots=2, max_len=100),
-                    PoolConfig(**POOL), device="cpu")
+    swa = get_config("h2o_danube_1_8b").reduced(num_layers=1)   # window 32
+    with pytest.raises(ValueError, match="max_len"):
+        ServeEngine(swa, EngineConfig(**ECFG), PoolConfig(**POOL),
+                    device="cpu")
     with pytest.raises(NotImplementedError):
         ServeEngine(dataclasses.replace(cfg, family="moe"),
                     EngineConfig(**ECFG), PoolConfig(**POOL), device="cpu")
