@@ -72,9 +72,13 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      reference's TOL, 4e-2 in bf16 and 3e-5 in float32, at D 128 and, for
      the hybrid, D 256 with G 10 and a window of 2048; decode also at
      lengths on its split edges, flash in bf16 at S off its tile, windows
-     under a key tile and groups of 1 to 16), with ms per call (CUDA
-     events around the
-     wrapper), the kernels' own device time per call (torch.profiler),
+     under a key tile and groups of 1 to 16; both at every serve run's
+     shapes, flash also without a mask over keys of their own length, as
+     Whisper's encoder and the cross-attention give it; those two long-row
+     grids draw q and v at ``AMP`` so that their outputs are of order 1
+     beside TOL's atol, and report each case's max |plain|), with ms per call
+     (CUDA events around the wrapper), the kernels' own device time per
+     call (torch.profiler),
      the decode kernel's split (n_split), the plain version's ms, one
      PyTorch library call's ms and device ms, bytes and flops;
  12. serving  — the serving main path: ``run_ab`` on Qwen3-1.7B at full
@@ -135,6 +139,16 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      routing (root flips, each with a probability gap under FLIP_GAP, and
      the flips downstream of them) and measure the floor of a plain run
      whose router logits are float64;
+ 15c. encdec_serve, vlm_serve — the same for the cross-attention
+     families, random weights from seed 0 with the VLM's gates and the
+     ungated MLP's biases drawn non-zero (``liven``) and the stubbed
+     frontends' embeddings from a seed (``memory_inputs``): Whisper-tiny
+     whole (4 x 224, frames [4, 1500, 384], a ring of 256, 32 steps;
+     flash 12 = 4 encoder + 4 self + 4 cross, decode 256 = 8 x 32) and
+     Llama-3.2-Vision-11B whole (2 x 512, image tokens [2, 6400, 4096],
+     a ring of 528, 16 steps; flash 40, decode 640); the float32 reruns
+     also hold ``enc_out`` and the cross caches within the tolerance and
+     ``len`` / ``kv_pos`` equal;
  16. kernels  — one JSON object per kernel: launches on its paths, max
      error against the plain version, ms and device ms, the bound and the
      library call's ms and device ms; every Pallas kernel of the
@@ -1171,14 +1185,28 @@ def phase_sharded() -> dict:
 
 #: the reference's kernel tolerance (tests/test_kernels.py:16)
 TOL = {torch.bfloat16: 4e-2, torch.float32: 3e-5}
+#: the long-row checks (``decode_edges``, ``flash_cross``) draw q and v at
+#: this scale. From N(0, 1) a row over Skv keys gives outputs of size
+#: ~sqrt(e / Skv) (0.02 at 6400 keys), under TOL's atol. At AMP the scores
+#: have std 3, a row's weight sits on its largest few keys and its running
+#: max moves by whole units from tile to tile, and the outputs have an rms
+#: near 1 (0.7 at 6400 keys, 3 at one key).
+AMP = 3.0
+#: the least rms of a plain output (a decode row) those checks accept: an
+#: output far under TOL's atol would pass whatever the kernel wrote
+MIN_RMS = 0.25
+# The phases' ``max_abs_err`` / ``max_abs_err_f32`` are over the grids
+# drawn from N(0, 1). The grids drawn at AMP report each case's max |err|
+# beside the plain output's max |x| and ``tol_share``: at outputs near 10
+# a float32 error of 4e-5 is within TOL (atol + rtol |plain|), not over it.
 
 #: the serving path's shapes: 28 layers x 4 slots x 28 blocks of 16
 #: positions, Hkv 8, G 2, D 128
 L_, B_, P_, PAGE, HKV, G_, D_ = 28, 4, 28, 16, 8, 2, 128
 
 
-def _randn(shape, dtype, gen, dev):
-    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+def _randn(shape, dtype, gen, dev, scale=1.0):
+    return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
 
 
 def _close(out, plain, dtype, what) -> float:
@@ -1189,6 +1217,13 @@ def _close(out, plain, dtype, what) -> float:
     check(ok and bool(torch.isfinite(a).all()),
           f"{what}: kernel vs plain max err {err} beyond {TOL[dtype]}")
     return err
+
+
+def _tol_share(out, plain, dtype) -> float:
+    """The largest |out - plain| / (atol + rtol |plain|) at TOL: at most 1
+    where ``_close`` passes."""
+    a, b = out.float(), plain.float()
+    return float(((a - b).abs() / (TOL[dtype] * (1 + b.abs()))).max())
 
 
 def _sdpa(q, k, v, **kw):
@@ -1388,11 +1423,12 @@ def phase_decode_attention(dev=DEV) -> dict:
     bytes_moved = (nbytes([q, ident, ln]) + 2 * row * sum(lens)
                    + nbytes([q]))
     ops = 4 * sum(lens) * HKV * G_ * D_
+    serve = []
     for shape in DECODE_SERVE:
         for dtype in (torch.bfloat16, torch.float32):
-            e, n_cases = decode_edges(gen, dev, *shape, dtype)
-            err[str(dtype)] = max(err[str(dtype)], e)
-            cases += n_cases
+            e = decode_edges(gen, dev, *shape, dtype)
+            cases += e.pop("cases")
+            serve.append(dict(shape=[*shape, str(dtype)], **e))
     hybrid = _decode_attention_hybrid(gen, dev)
     return dict(cases=cases + hybrid.pop("cases"),
                 max_abs_err=max(err["torch.bfloat16"],
@@ -1403,49 +1439,64 @@ def phase_decode_attention(dev=DEV) -> dict:
                 library_ms=library_ms, library_device_ms=library_device_ms,
                 n_split=plan.n_split, split_len=plan.split_len,
                 lengths=lens, bytes=bytes_moved,
-                ops=ops, hybrid=hybrid)
+                ops=ops, hybrid=hybrid, serve=serve)
 
 
-#: the dense and moe serve runs' decode, the ring read as one page (B,
-#: Hkv, G, D, page, pages): Danube (G 4, D 80, its window's ring of 4096,
-#: and as pages of 16), Granite (G 4), Grok-1 (G 6), Qwen1.5 (G 8) at the
-#: ring of 528, OLMoE (G 1) at 1056
+#: the dense, moe, encdec and vlm serve runs' decode, the ring read as one
+#: page (B, Hkv, G, D, page, pages): Danube (G 4, D 80, its window's ring
+#: of 4096, and as pages of 16), Granite and the VLM's self-attention (G
+#: 4), Grok-1 (G 6), Qwen1.5 (G 8) at the ring of 528, OLMoE (G 1) at
+#: 1056; Whisper's ring of 256 and its cross-attention over 1500 frames
+#: (G 1, D 64), the VLM's over 6400 image tokens (G 4), each memory one
+#: page a sequence
 DECODE_SERVE = [(2, 8, 4, 80, 4096, 1), (2, 8, 4, 80, 16, 256),
                 (2, 8, 4, 128, 528, 1), (2, 8, 6, 128, 528, 1),
-                (2, 8, 8, 128, 528, 1), (2, 16, 1, 128, 1056, 1)]
+                (2, 8, 8, 128, 528, 1), (2, 16, 1, 128, 1056, 1),
+                (4, 6, 1, 64, 256, 1), (4, 6, 1, 64, 1500, 1),
+                (2, 8, 4, 128, 6400, 1)]
 
 
-def decode_edges(gen, dev, b, hkv, g, d, page, p, dtype) -> tuple:
+def decode_edges(gen, dev, b, hkv, g, d, page, p, dtype) -> dict:
     """The split-KV kernel at lengths on its own splits' edges (1,
     split - 1, split, split + 1, the full table), 0 beside a full row, and
-    holes among many short splits, against the plain version; rows with
-    nothing live give zeros. Returns (max |err|, cases)."""
+    holes among many short splits, q and v drawn at ``AMP``, against the
+    plain version; rows with nothing live give zeros. Returns the max
+    |err| and the cases, beside the plain output's max |x|, its live rows'
+    least rms and ``tol_share``."""
     plan = DEC.device_plan(dev, b, hkv, page, p)
     cap, sp = page * p, plan.split_len
     n = b * p
-    q = _randn((b, hkv, g, d), dtype, gen, dev)
+    q = _randn((b, hkv, g, d), dtype, gen, dev, AMP)
     kp = _randn((n, page, hkv, d), dtype, gen, dev)
-    vp = _randn((n, page, hkv, d), dtype, gen, dev)
+    vp = _randn((n, page, hkv, d), dtype, gen, dev, AMP)
     tbl = torch.randperm(n, generator=gen, device=dev).to(
         torch.int32).view(b, p)
     if p > 1:
         tbl[0, 1::5] = -1
     edges = [1, sp - 1, sp, sp + 1, 2 * sp, cap - 1, cap, 0]
-    err, cases = 0.0, 0
+    err, cases, top, least, share = 0.0, 0, 0.0, float("inf"), 0.0
     for i in range(0, len(edges), b):
         lens = [min(max(x, 0), cap) for x in (edges[i:i + b] + [cap] * b)[:b]]
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
         out = DEC.paged_decode_attention_cuda(q, kp, vp, tbl, ln)
         torch.cuda.synchronize()
         plain = DEC._ref.paged_decode_attention_ref(q, kp, vp, tbl, ln)
-        err = max(err, _close(out, plain, dtype, f"decode B={b} Hkv={hkv} "
-                              f"G={g} D={d} page={page}x{p} {plan} {lens} "
-                              f"{dtype}"))
+        what = (f"decode B={b} Hkv={hkv} G={g} D={d} page={page}x{p} {plan} "
+                f"{lens} {dtype}")
+        err = max(err, _close(out, plain, dtype, what))
+        top = max(top, float(plain.float().abs().max()))
+        share = max(share, _tol_share(out, plain, dtype))
         for row, length in enumerate(lens):
             check(length > 0 or torch.count_nonzero(out[row]) == 0,
                   f"decode G={g} D={d}: a row with nothing live is not 0")
+            if length:
+                rms = float(plain[row].float().square().mean().sqrt())
+                check(rms >= MIN_RMS, f"{what}: row {row}'s plain output "
+                      f"rms {rms} under {MIN_RMS}")
+                least = min(least, rms)
         cases += 1
-    return err, cases
+    return dict(max_abs_err=err, cases=cases, max_abs_plain=top,
+                min_rms_plain=least, tol_share=share)
 
 
 #: the hybrid path's decode: B 2, one KV head, G 10, D 256, a ring of 2048
@@ -1550,7 +1601,22 @@ FLASH_CASES = [  # (S, H, Hkv, D, causal, window, dtype)
     (77, 8, 2, 80, False, None, torch.bfloat16),
     (100, 8, 2, 80, True, 64, torch.float32),
     (130, 12, 2, 128, True, 40, torch.bfloat16),
+    # Whisper's decoder self-attention: G 1 at D 64 (the VLM's self-
+    # attention is Granite's shape above)
+    (224, 6, 6, 64, True, None, torch.bfloat16),
 ]
+
+#: non-causal flash with its own key length Skv (B, S, Skv, H, Hkv, D,
+#: dtype): Whisper's encoder (S = Skv = 1500, off both key tiles) and
+#: cross-attention (S 224 over 1500 frames), G 1 at D 64; the VLM's cross-
+#: attention (S 512 over 6400 image tokens), G 4 at D 128; and S, Skv off
+#: every tile with G 2
+FLASH_CROSS = [(b, s, skv, h, hkv, d, dtype)
+               for b, s, skv, h, hkv, d in ((4, 1500, 1500, 6, 6, 64),
+                                            (4, 224, 1500, 6, 6, 64),
+                                            (2, 512, 6400, 32, 8, 128),
+                                            (1, 37, 100, 4, 2, 64))
+               for dtype in (torch.bfloat16, torch.float32)]
 
 
 def phase_flash_attention(dev=DEV) -> dict:
@@ -1568,6 +1634,8 @@ def phase_flash_attention(dev=DEV) -> dict:
         e = _close(out, plain, dtype, f"flash S={s} H={h}/{hkv} D={d} "
                    f"causal={causal} window={window} {dtype}")
         err[str(dtype)] = max(err[str(dtype)], e)
+    cross = [dict(case=[*case[:-1], str(case[-1])],
+                  **flash_cross(gen, dev, *case)) for case in FLASH_CROSS]
     # timing at the path's longest prefill: S = 432, H 16 / Hkv 8, D 128
     s = 432
     q = _randn((1, s, HKV * G_, D_), torch.bfloat16, gen, dev)
@@ -1582,12 +1650,33 @@ def phase_flash_attention(dev=DEV) -> dict:
     library_ms = time_ms(lambda: _sdpa(q, k, v, is_causal=True), iters=50)
     library_device_ms = device_ms(lambda: _sdpa(q, k, v, is_causal=True))
     ops = 4 * (s * (s + 1) // 2) * HKV * G_ * D_
-    return dict(cases=len(FLASH_CASES), max_abs_err=err["torch.bfloat16"],
+    return dict(cases=len(FLASH_CASES) + len(FLASH_CROSS),
+                max_abs_err=err["torch.bfloat16"],
                 max_abs_err_f32=err["torch.float32"], ms=ms,
                 device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
                 library_device_ms=library_device_ms, s=s,
                 bytes=nbytes([q, k, v]) + nbytes([q]),
-                ops=ops, hybrid=_flash_attention_hybrid(gen, dev))
+                ops=ops, hybrid=_flash_attention_hybrid(gen, dev),
+                cross=cross)
+
+
+def flash_cross(gen, dev, b, s, skv, h, hkv, d, dtype) -> dict:
+    """The flash kernel without a mask over keys of their own length Skv
+    (``causal=False``), q and v drawn at ``AMP``, against the plain
+    version: max |err| beside the plain output's max |x|, its rms and
+    ``tol_share``."""
+    q = _randn((b, s, h, d), dtype, gen, dev, AMP)
+    k = _randn((b, skv, hkv, d), dtype, gen, dev)
+    v = _randn((b, skv, hkv, d), dtype, gen, dev, AMP)
+    out = FLASH.flash_attention_cuda(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    plain = FLASH._ref.flash_attention_ref(q, k, v, causal=False)
+    what = f"flash B={b} S={s} Skv={skv} H={h}/{hkv} D={d} non-causal {dtype}"
+    rms = float(plain.float().square().mean().sqrt())
+    check(rms >= MIN_RMS, f"{what}: plain output rms {rms} under {MIN_RMS}")
+    return dict(max_abs_err=_close(out, plain, dtype, what),
+                max_abs_plain=float(plain.float().abs().max()),
+                rms_plain=rms, tol_share=_tol_share(out, plain, dtype))
 
 
 def _flash_attention_hybrid(gen, dev, s: int = 3072, window: int = 2048
@@ -2301,6 +2390,11 @@ RECURRENT_KERNELS = {"rg_lru": RGLRU.RG_LRU, "mlstm": MLSTM.MLSTM,
 #:   exact a form as the chunks of 64): ``plain_floor``; 1e-2.
 #: - dense: as the hybrid, the attention kernels alone; ~2e-5 in the
 #:   logits of Danube, Granite and Qwen1.5 (4 layers) on the H100; 1e-3.
+#: - encdec, vlm: as dense, the attention kernels alone, now also over
+#:   memories (Whisper's encoder of 1500 frames, bidirectional; cross-
+#:   attention to 1500 frames and to 6400 image tokens) in prefill and
+#:   decode; ``enc_out`` and the cross caches ``xk`` / ``xv`` are held at
+#:   the same tolerance, ``len`` and ``kv_pos`` exactly; 1e-3.
 #: - moe: the router takes each token's top k experts, and where the k-th
 #:   and (k+1)-th probabilities sit within rounding of each other the two
 #:   runs can choose differently (a flip); a flip moves that token's
@@ -2312,23 +2406,26 @@ RECURRENT_KERNELS = {"rg_lru": RGLRU.RG_LRU, "mlstm": MLSTM.MLSTM,
 #:   within 1.83e-4 of the plain run, at a floor of 1.84e-4; Grok (2
 #:   layers) none, 2e-5 at a floor of 1.1e-5; 1e-3.
 #: ``tol_share`` is the largest |a - b| / (atol + rtol |b|) seen.
-SERVE_F32_TOL = {"hybrid": 1e-3, "ssm": 1e-2, "dense": 1e-3, "moe": 1e-3}
+SERVE_F32_TOL = {"hybrid": 1e-3, "ssm": 1e-2, "dense": 1e-3, "moe": 1e-3,
+                 "encdec": 1e-3, "vlm": 1e-3}
 SERVE_STEPS = 32
 #: a flip's probability gap (between the experts the two runs swapped, in
 #: the plain run) must be under this: a routing near-tie, not a fault
 FLIP_GAP = 1e-5
 
 
-def _generate(model, prompts, seq_len, steps, forced=None):
+def _generate(model, prompts, seq_len, steps, forced=None, extra=None):
     """prefill + ``steps`` greedy decode steps (the tokens of ``forced``
-    instead of the argmax when given). Returns (logits [steps+1] of [B, V]
-    float32, tokens [B, steps], prefill s, decode s)."""
+    instead of the argmax when given; ``extra``: the prefill batch's other
+    inputs, ``memory_inputs``). Returns (logits [steps+1] of [B, V]
+    float32, tokens [B, steps], prefill s, decode s, the final cache)."""
     from repro_torch.configs.base import ShapeConfig
     b = prompts.shape[0]
     cache = model.init_cache(b, ShapeConfig("serve", seq_len, b, "decode"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": prompts}, cache)
+    logits, cache = model.prefill({"tokens": prompts, **(extra or {})},
+                                  cache)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     outs, toks = [logits], []
@@ -2340,13 +2437,66 @@ def _generate(model, prompts, seq_len, steps, forced=None):
         outs.append(logits)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return outs, torch.cat([prompts[:, :0]] + toks, 1), t1 - t0, t2 - t1
+    return (outs, torch.cat([prompts[:, :0]] + toks, 1), t1 - t0, t2 - t1,
+            cache)
 
 
-def _prefill_by_block(model, prompts, seq_len) -> dict:
+#: the cross-attention families' memories: (batch key, length field)
+MEMORY = {"encdec": ("frames", "encoder_seq_len"),
+          "vlm": ("image_embeds", "num_image_tokens")}
+
+
+def memory_inputs(cfg, batch: int, dev, seed: int = 2) -> dict:
+    """The stubbed frontend's output that ``cfg``'s prefill takes besides
+    its tokens, drawn from ``seed`` in float32 and cast to ``cfg.dtype``:
+    Whisper's frame embeddings [B, Se, D] or the VLM's patch embeddings
+    [B, Ti, D] (the same draws at every dtype); {} for other families."""
+    if cfg.family not in MEMORY:
+        return {}
+    key, field = MEMORY[cfg.family]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((batch, getattr(cfg, field), cfg.d_model), generator=gen,
+                    device=dev)
+    return {key: x.to(getattr(torch, cfg.dtype))}
+
+
+#: parameters that start at zero and would hide a path: the VLM's cross
+#: gates (tanh(0) = 0 zeroes every cross layer) and the ungated MLP's
+#: biases; ``liven`` draws them, |tanh(gate)| in GATE_TANH, biases
+#: N(0, BIAS_STD^2)
+GATE_TANH = (0.3, 0.9)
+BIAS_STD = 0.1
+
+
+def liven(state: dict, seed: int = 3) -> dict:
+    """Draw every gate and ungated-MLP bias of ``state`` (a model's
+    parameters, changed in place) from ``seed``: gates with |tanh| in
+    ``GATE_TANH`` and either sign, biases N(0, ``BIAS_STD``^2). The same
+    seed gives the same values at every dtype. Returns what was drawn."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    drawn = {"gates": 0, "biases": 0}
+    for name in sorted(state):
+        t = state[name]
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("gate_attn", "gate_mlp"):
+            lo, hi = GATE_TANH
+            th = lo + (hi - lo) * torch.rand(t.shape, generator=gen)
+            sign = torch.where(torch.rand(t.shape, generator=gen) < 0.5,
+                               -1.0, 1.0)
+            t.copy_(torch.atanh(th) * sign)
+            drawn["gates"] += 1
+        elif leaf in ("b_up", "b_down"):
+            t.copy_(BIAS_STD * torch.randn(t.shape, generator=gen))
+            drawn["biases"] += 1
+    return dict(drawn, gate_tanh=list(GATE_TANH), bias_std=BIAS_STD,
+                seed=seed)
+
+
+def _prefill_by_block(model, prompts, seq_len, extra=None) -> dict:
     """Where one more bf16 prefill spends its time: seconds per block
-    class, each layer timed between synchronizes (so the total is a little
-    above the unprofiled prefill's), and the total."""
+    class (the encoder's layers too), each layer timed between
+    synchronizes (so the total is a little above the unprofiled
+    prefill's), and the total."""
     spent, start = {}, {}
 
     def before(mod, args):
@@ -2358,11 +2508,13 @@ def _prefill_by_block(model, prompts, seq_len) -> dict:
         name = type(mod).__name__
         spent[name] = spent.get(name, 0.0) + time.perf_counter() - start[
             id(mod)]
-    hooks = [h for layer in model.layers
+    layers = list(model.layers) + list(getattr(model, "encoder", []))
+    hooks = [h for layer in layers
              for h in (layer.register_forward_pre_hook(before),
                        layer.register_forward_hook(after))]
     try:
-        _, _, total, _ = _generate(model, prompts, seq_len, 0)
+        _, _, total, _, _ = _generate(model, prompts, seq_len, 0,
+                                      extra=extra)
     finally:
         for h in hooks:
             h.remove()
@@ -2392,6 +2544,32 @@ def _compare(cfg, ko, po, tol) -> dict:
     return dict(max_abs_err_logits=err, tol=tol, tol_share=share,
                 max_abs_logit=scale, greedy_decided=decided,
                 greedy_agree=agree)
+
+
+def _compare_caches(cfg, kc, pc, tol) -> dict:
+    """The final caches of two float32 runs: ``len`` and ``kv_pos`` equal,
+    every cross cache (``xk`` / ``xv``, all cross layers) and Whisper's
+    ``enc_out`` within ``tol`` (atol = rtol). Returns the max |err| of
+    each. (The self rings are not held: a MoE routing flip moves a
+    token's K/V by a whole expert's share.)"""
+    check(torch.equal(kc["len"], pc["len"])
+          and torch.equal(kc["kv_pos"], pc["kv_pos"]),
+          f"{cfg.name} float32: len / kv_pos differ")
+    pairs = {"enc_out": (kc.get("enc_out"), pc.get("enc_out"))}
+    for sec in ("scan", "tail"):
+        for key, leaves in kc["stack"][sec].items():
+            for n, a in leaves.items():
+                if n in ("xk", "xv"):
+                    pairs[f"{key}.{n}"] = (a, pc["stack"][sec][key][n])
+    err = {}
+    for what, (a, b) in pairs.items():
+        if a is None:
+            continue
+        check(torch.allclose(a, b, atol=tol, rtol=tol),
+              f"{cfg.name} float32 {what}: kernels vs plain max err "
+              f"{float((a - b).abs().max())} beyond {tol}")
+        err[what] = float((a - b).abs().max())
+    return err
 
 
 class _Routing:
@@ -2504,12 +2682,15 @@ def _serve(cfg, dev, batch: int, prompt: int, seq_len: int, tol: float,
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             generator=gen, device=dev, dtype=torch.int32)
     model = build_model(cfg, dev)
-    model.init_params(torch.Generator(device=dev).manual_seed(0))
+    livened = liven(model.init_params(
+        torch.Generator(device=dev).manual_seed(0)))
+    extra = memory_inputs(cfg, batch, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in RECURRENT_KERNELS.values():
         k.launches = 0
-    outs, toks, pre_s, dec_s = _generate(model, prompts, seq_len, steps)
+    outs, toks, pre_s, dec_s, _ = _generate(model, prompts, seq_len, steps,
+                                            extra=extra)
     launches = {n: k.launches for n, k in RECURRENT_KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
     check(all(bool(torch.isfinite(o).all()) for o in outs),
@@ -2517,38 +2698,43 @@ def _serve(cfg, dev, batch: int, prompt: int, seq_len: int, tol: float,
     check(tuple(outs[0].shape) == (batch, cfg.padded_vocab),
           f"{cfg.name}: logits {tuple(outs[0].shape)}")
     n_params = sum(p.numel() for p in model.parameters())
-    by_block = _prefill_by_block(model, prompts, seq_len)
-    del model, outs
+    by_block = _prefill_by_block(model, prompts, seq_len, extra)
+    del model, outs, extra
     torch.cuda.empty_cache()
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     kern = build_model(cfg32, dev, backend="cuda")
     state = kern.init_params(torch.Generator(device=dev).manual_seed(0))
+    liven(state)
     plain = build_model(cfg32, dev, backend="ref")
     plain.load_params(state)
+    extra = memory_inputs(cfg32, batch, dev)
     t0 = time.perf_counter()
     with _Routing() as rk:
-        ko, _, _, _ = _generate(kern, prompts, seq_len, steps, forced=toks)
+        ko, _, _, _, kcache = _generate(kern, prompts, seq_len, steps,
+                                        forced=toks, extra=extra)
     with _Routing() as rp:
-        po, _, _, _ = _generate(plain, prompts, seq_len, steps, forced=toks)
+        po, _, _, _, pcache = _generate(plain, prompts, seq_len, steps,
+                                        forced=toks, extra=extra)
     flips = _flips(cfg, cfg.num_layers, rk.calls, rp.calls) if routing \
         else None
     del rk, rp
     floor_err = None
     if floor is not None:
         with floor[1]():
-            fo, _, _, _ = _generate(plain, prompts, seq_len, steps,
-                                    forced=toks)
+            fo, _, _, _, _ = _generate(plain, prompts, seq_len, steps,
+                                       forced=toks, extra=extra)
         floor_err = max(float((a - b).abs().max()) for a, b in zip(fo, po))
         del fo
     rerun = _compare(cfg, ko, po, tol)
+    rerun["max_abs_err_caches"] = _compare_caches(cfg, kcache, pcache, tol)
     rerun["seconds"] = time.perf_counter() - t0
     if floor is not None:
         rerun["plain_floor"] = dict(form=floor[0],
                                     max_abs_err_logits=floor_err)
     if flips is not None:
         rerun["routing"] = flips
-    del kern, plain, state, ko, po
+    del kern, plain, state, ko, po, kcache, pcache, extra
     torch.cuda.empty_cache()
     tokens = batch * steps
     return dict(params=n_params, batch=batch, prompt=prompt,
@@ -2558,6 +2744,8 @@ def _serve(cfg, dev, batch: int, prompt: int, seq_len: int, tol: float,
                 decode_tokens_per_s=tokens / dec_s, peak_gb=peak / 1e9,
                 held_gb=held / 1e9, launches=launches,
                 prefill_by_block=by_block,
+                livened=livened if any(livened[k] for k in
+                                       ("gates", "biases")) else None,
                 f32_rerun=rerun)
 
 
@@ -2607,10 +2795,33 @@ MOE_RUNS = (("olmoe_1b_7b", None, 2, 1024, 1024 + 32, 32),
             ("grok_1_314b", 2, 2, 512, 512 + 16, 16))
 
 
+#: the encdec and vlm families' runs, as DENSE_RUNS: Whisper-tiny whole
+#: (4 decoder and 4 encoder layers; 4 x 224 into a ring of 256, frames
+#: [4, 1500, 384]); Llama-3.2-Vision-11B whole (32 self and 8 cross
+#: layers, ~20 GB in bf16; 2 x 512, image tokens [2, 6400, 4096])
+ENCDEC_RUNS = (("whisper_tiny", None, 4, 224, 256, 32),)
+VLM_RUNS = (("llama_3_2_vision_11b", None, 2, 512, 512 + 16, 16),)
+
+#: attention calls of one layer of each kind (a Whisper decoder layer
+#: attends to itself and to the encoder's output)
+ATTENTION_CALLS = {"layer": 1, "moe_layer": 1, "attn": 1, "self": 1,
+                   "cross": 1, "dec": 2}
+
+
+def attention_launches(cfg, steps: int) -> dict:
+    """The attention kernels' launches of one prefill and ``steps`` decode
+    steps: flash once an attention call of a layer and once an encoder
+    layer, decode once an attention call of a layer a step."""
+    calls = sum(ATTENTION_CALLS.get(k, 0) for k in _layer_kinds(cfg))
+    return {"flash_attention": calls + cfg.num_encoder_layers,
+            "paged_decode_attention": calls * steps}
+
+
 def _family_serve(family: str, runs, dev, **kw) -> dict:
     """Each run of ``runs`` through ``_serve`` (its depth cut recorded),
-    with flash launches = layers and decode launches = layers x steps;
-    the launches summed over the runs."""
+    with the attention launches ``attention_launches`` says (flash =
+    layers and decode = layers x steps for dense and moe); the launches
+    summed over the runs."""
     out, total = {}, {}
     for arch, layers, batch, prompt, seq_len, steps in runs:
         full = get_config(arch)
@@ -2618,9 +2829,7 @@ def _family_serve(family: str, runs, dev, **kw) -> dict:
             full, num_layers=layers)
         res = _serve(cfg, dev, batch=batch, prompt=prompt, seq_len=seq_len,
                      tol=SERVE_F32_TOL[family], steps=steps, **kw)
-        want = {"rg_lru": 0, "flash_attention": cfg.num_layers,
-                "paged_decode_attention": cfg.num_layers * steps,
-                "mlstm": 0}
+        want = {"rg_lru": 0, **attention_launches(cfg, steps), "mlstm": 0}
         check(res["launches"] == want,
               f"{arch} launches {res['launches']} != {want}")
         res["layers"] = dict(run=cfg.num_layers, config=full.num_layers)
@@ -2644,6 +2853,21 @@ def phase_moe_serve(dev=DEV, runs=MOE_RUNS) -> dict:
         "moe", runs, dev, routing=True,
         floor=("router logits in float64", lambda: mock.patch.object(
             MOE, "_router_logits", _router_f64)))
+
+
+def phase_encdec_serve(dev=DEV, runs=ENCDEC_RUNS) -> dict:
+    """Whisper-tiny whole through the kernels (the encoder's bidirectional
+    flash, the decoder's causal flash and cross flash over 1500 frames,
+    decode over the ring and over the frames as one page), rerun in
+    float32; biases drawn non-zero (``liven``)."""
+    return _family_serve("encdec", runs, dev)
+
+
+def phase_vlm_serve(dev=DEV, runs=VLM_RUNS) -> dict:
+    """Llama-3.2-Vision-11B whole through the kernels (cross flash and
+    decode over 6400 image tokens), rerun in float32; the cross gates
+    drawn with |tanh| in GATE_TANH (``liven``)."""
+    return _family_serve("vlm", runs, dev)
 
 
 def _layer_kinds(cfg) -> list:
@@ -2700,15 +2924,18 @@ def main() -> int:
                       ("hybrid_serve", phase_hybrid_serve),
                       ("ssm_serve", phase_ssm_serve),
                       ("dense_serve", phase_dense_serve),
-                      ("moe_serve", phase_moe_serve)):
+                      ("moe_serve", phase_moe_serve),
+                      ("encdec_serve", phase_encdec_serve),
+                      ("vlm_serve", phase_vlm_serve)):
         t0 = time.perf_counter()
         results[phase] = fn()
         emit(phase, seconds=time.perf_counter() - t0, **results[phase])
 
     # launches of each kernel on its main paths: the wavefront kernels in
     # HAMMER2K x 4 policies, the serving kernels in the full-width A/B, the
-    # attention kernels also in the hybrid, dense and moe runs, rg_lru in
-    # the hybrid run, mlstm in the ssm run (each run counted from 0)
+    # attention kernels also in the hybrid, dense, moe, encdec and vlm runs,
+    # rg_lru in the hybrid run, mlstm in the ssm run (each run counted from
+    # 0)
     paths = {"HAMMER2K": results["scale"]["HAMMER2K"]["launches"],
              "STRESS": results["api"]["stress"]["launches"],
              "fig7_quick": {"event_loop": results["fig7"]["launches"]},
@@ -2719,7 +2946,9 @@ def main() -> int:
              "hybrid_serve": results["hybrid_serve"]["launches"],
              "ssm_serve": results["ssm_serve"]["launches"],
              "dense_serve": results["dense_serve"]["launches"],
-             "moe_serve": results["moe_serve"]["launches"]}
+             "moe_serve": results["moe_serve"]["launches"],
+             "encdec_serve": results["encdec_serve"]["launches"],
+             "vlm_serve": results["vlm_serve"]["launches"]}
     measured = {"wave_queue": (results["wave_queue"], F32_OPS_PER_S),
                 "wave_cache": (results["wave_cache"], F32_OPS_PER_S),
                 "medic_gather": (results["medic_gather"], BF16_OPS_PER_S),

@@ -2,11 +2,10 @@
 
 ``ModelConfig`` keeps every field of the reference, so a config built
 here describes the same architecture as the reference's, field for field,
-and ``reduced`` cuts it to the same small size. ``get_config`` returns the
-configs the port can build (the dense, moe, hybrid and ssm families);
-the encoder-decoder and vlm archs raise until their family is ported
-(ROADMAP A9). ``OptimizerConfig``, ``TrainConfig``, ``MeshConfig`` and
-``MedicConfig`` are not ported yet.
+and ``reduced`` cuts it to the same small size. ``get_config`` returns
+each of the reference's ten archs. ``OptimizerConfig``, ``TrainConfig``,
+``MeshConfig`` and ``MedicConfig`` are not ported yet (ROADMAP A9,
+training).
 """
 from __future__ import annotations
 
@@ -32,7 +31,6 @@ class ModelConfig:
       encdec  -- Whisper-style encoder-decoder (audio frontend stubbed)
       vlm     -- Llama-3.2-Vision-style: self-attn stack + interleaved
                  cross-attention to (stubbed) image patch embeddings
-    ``dense``, ``moe``, ``hybrid`` and ``ssm`` are ported so far.
     """
 
     name: str
@@ -145,19 +143,10 @@ ARCH_IDS = (
     "xlstm_125m",
 )
 
-#: the archs whose config module the port has (ROADMAP A9)
-PORTED_ARCHS = ("grok_1_314b", "olmoe_1b_7b", "recurrentgemma_2b",
-                "h2o_danube_1_8b", "qwen1_5_110b", "qwen3_1_7b",
-                "granite_3_8b", "xlstm_125m")
-
 
 def get_config(arch: str) -> ModelConfig:
     arch = arch.replace("-", "_").replace(".", "_")
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet (ROADMAP A9); "
-            f"ported: {PORTED_ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG

@@ -1,23 +1,25 @@
-"""Block definitions, in torch (the dense, moe, hybrid and ssm blocks of
-``repro.models.blocks``).
+"""Block definitions, in torch (every block of ``repro.models.blocks``).
 
 Block apply signature: (cfg, p, x, aux, cache) -> (x, cache)
 
 ``aux`` carries the step's shared context:
-  "mode" in {"prefill", "decode"}, "backend" (the kernels' gate),
-  "q_pos" [B,S] positions of the current tokens,
+  "mode" in {"encode", "prefill", "decode"}, "backend" (the kernels'
+  gate), "q_pos" [B,S] positions of the current tokens,
   decode only: "write_slot" [B] ring index of the new token, "kv_pos"
   [B,W] positions held in the ring (-1 empty), and the paged view of the
-  ring — "page", "block_tbl" i32[B,P], "lengths" i32[B].
+  ring — "page", "block_tbl" i32[B,P], "lengths" i32[B];
+  the memories of cross-attention: "enc_out" [B,Se,D] (Whisper; the
+  cache's copy in decode), "img" [B,Ti,D] (the VLM; prefill only).
 
 Caches are per-layer slices of the stacked cache handed in by the stack
 loop, and are updated IN PLACE (the reference returns new arrays; writing
 into the slice saves a copy of the whole cache per step).
 
 Ported: the dense and MoE layers, RecurrentGemma's RG-LRU block and local
-attention, and xLSTM's mLSTM and sLSTM blocks; the encoder-decoder and VLM
-cross-attention blocks wait for ROADMAP A9. The serve path drops the MoE
-layer's aux loss, as the reference's ``prefill`` and ``decode`` do.
+attention, xLSTM's mLSTM and sLSTM blocks, Whisper's encoder and decoder
+layers and the VLM's gated cross-attention layer (its self-attention
+layers are dense layers under the kind "self"). The serve path drops the
+MoE layer's aux loss, as the reference's ``prefill`` and ``decode`` do.
 """
 from __future__ import annotations
 
@@ -88,6 +90,27 @@ def _scatter_ring(cache, kv_new, slots):
     place."""
     rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
     cache[rows, slots.long()] = kv_new.to(cache.dtype)
+
+
+def _cross_attention(cfg, p, x, mem, aux, cache):
+    """Cross-attention of x to a memory: no rope, no bias. In prefill (or
+    without a cache) k, v come from ``mem`` and are written into the cache
+    as ``xk``/``xv`` in the cache's dtype; in decode they are read from
+    it. Nothing is masked (the reference's ``attention_full`` with all
+    positions 0 and ``causal=False``): the flash kernel over the memory in
+    prefill, the paged decode kernel over it as one page in decode."""
+    backend = aux.get("backend", "auto")
+    q = L._proj(x, p["wq"])
+    if aux["mode"] == "decode" and cache is not None:
+        o = L.attention_cross_decode(q, cache["xk"], cache["xv"],
+                                     backend=backend)
+        return L.attn_out(p, o), cache
+    k, v = L._proj(mem, p["wk"]), L._proj(mem, p["wv"])
+    if cache is not None:
+        cache["xk"].copy_(k)
+        cache["xv"].copy_(v)
+    o = L.attention_prefill(q, k, v, causal=False, backend=backend)
+    return L.attn_out(p, o), cache
 
 
 def _kv_cache_init(cfg, batch, w, dtype, device):
@@ -301,6 +324,125 @@ class SLSTMBlock(_Block):
     apply_fn = staticmethod(slstm_block_apply)
 
 
+# ---------------------------------------------------------------------------
+# Whisper blocks (encoder bidirectional; decoder self + cross)
+# ---------------------------------------------------------------------------
+
+def enc_layer_init(gen: Optional[torch.Generator], cfg):
+    """Attention, then the ungated MLP."""
+    ap = L.attn_params(gen, cfg)
+    mp = L.mlp_params(gen, cfg, gated=False)
+    return {"norm1": _norm_params(gen, cfg), "attn": ap,
+            "norm2": _norm_params(gen, cfg), "mlp": mp}
+
+
+def enc_layer_apply(cfg, p, x, aux, cache):
+    h = L.rms_norm(x, p.norm1, cfg.norm_eps)
+    q, k, v = L.attn_project_qkv(cfg, p.attn, h, aux["q_pos"],
+                                 use_rope=False)
+    o = L.attention_prefill(q, k, v, causal=False,
+                            backend=aux.get("backend", "auto"))
+    x = x + L.attn_out(p.attn, o)
+    h = L.rms_norm(x, p.norm2, cfg.norm_eps)
+    x = x + L.mlp_apply(cfg, p.mlp, h)
+    return x, None
+
+
+def dec_layer_init(gen: Optional[torch.Generator], cfg):
+    """Self-attention, cross-attention, then the ungated MLP."""
+    ap = L.attn_params(gen, cfg)
+    xp = L.attn_params(gen, cfg, cross=True)
+    mp = L.mlp_params(gen, cfg, gated=False)
+    return {"norm1": _norm_params(gen, cfg), "attn": ap,
+            "norm2": _norm_params(gen, cfg), "xattn": xp,
+            "norm3": _norm_params(gen, cfg), "mlp": mp}
+
+
+def dec_layer_apply(cfg, p, x, aux, cache):
+    self_cache = cross_cache = None
+    if cache is not None:
+        self_cache = {"k": cache["k"], "v": cache["v"]}
+        cross_cache = {"xk": cache["xk"], "xv": cache["xv"]}
+    h = L.rms_norm(x, p.norm1, cfg.norm_eps)
+    a, _ = _self_attention(cfg, p.attn, h, aux, self_cache)
+    x = x + a
+    h = L.rms_norm(x, p.norm2, cfg.norm_eps)
+    a, _ = _cross_attention(cfg, p.xattn, h, aux.get("enc_out"), aux,
+                            cross_cache)
+    x = x + a
+    h = L.rms_norm(x, p.norm3, cfg.norm_eps)
+    x = x + L.mlp_apply(cfg, p.mlp, h)
+    return x, cache
+
+
+def dec_layer_cache(cfg, batch, shape_cfg, device):
+    dtype = getattr(torch, cfg.dtype)
+    c = _kv_cache_init(cfg, batch, shape_cfg.seq_len, dtype, device)
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    for n in ("xk", "xv"):
+        c[n] = torch.zeros((batch, cfg.encoder_seq_len, kv, hd), dtype=dtype,
+                           device=device)
+    return c
+
+
+class EncLayer(_Block):
+    """One Whisper encoder layer: pre-norm bidirectional attention (no
+    rope, no cache) and the ungated MLP (``norm1``, ``attn``, ``norm2``,
+    ``mlp.{w_up,w_down,b_up,b_down}``)."""
+    init_fn = staticmethod(enc_layer_init)
+    apply_fn = staticmethod(enc_layer_apply)
+
+
+class DecLayer(_Block):
+    """One Whisper decoder layer: causal self-attention with rope, cross-
+    attention to the encoder's output, the ungated MLP (``norm1``,
+    ``attn``, ``norm2``, ``xattn.{wq,wk,wv,wo}``, ``norm3``, ``mlp``);
+    its cache is ``{k, v, xk, xv}``."""
+    init_fn = staticmethod(dec_layer_init)
+    apply_fn = staticmethod(dec_layer_apply)
+
+
+# ---------------------------------------------------------------------------
+# VLM cross block (Llama-3.2-Vision style gated cross-attention layer)
+# ---------------------------------------------------------------------------
+
+def vlm_cross_init(gen: Optional[torch.Generator], cfg):
+    """Cross-attention, then the gated MLP; both gates 0-d float32, at
+    zero (tanh(0) = 0: the layer starts as the identity)."""
+    xp = L.attn_params(gen, cfg, cross=True)
+    mp = L.mlp_params(gen, cfg)
+    dev = L._device(gen)
+    return {"norm1": _norm_params(gen, cfg), "xattn": xp,
+            "gate_attn": torch.zeros((), dtype=F32, device=dev),
+            "norm2": _norm_params(gen, cfg), "mlp": mp,
+            "gate_mlp": torch.zeros((), dtype=F32, device=dev)}
+
+
+def vlm_cross_apply(cfg, p, x, aux, cache):
+    h = L.rms_norm(x, p.norm1, cfg.norm_eps)
+    a, cache = _cross_attention(cfg, p.xattn, h, aux.get("img"), aux, cache)
+    x = x + torch.tanh(p.gate_attn).to(x.dtype) * a
+    h = L.rms_norm(x, p.norm2, cfg.norm_eps)
+    x = x + torch.tanh(p.gate_mlp).to(x.dtype) * L.mlp_apply(cfg, p.mlp, h)
+    return x, cache
+
+
+def vlm_cross_cache(cfg, batch, shape_cfg, device):
+    dtype = getattr(torch, cfg.dtype)
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {n: torch.zeros((batch, cfg.num_image_tokens, kv, hd),
+                           dtype=dtype, device=device) for n in ("xk", "xv")}
+
+
+class VLMCross(_Block):
+    """The VLM's gated cross-attention layer over the image embeddings
+    (``norm1``, ``xattn.{wq,wk,wv,wo}``, ``gate_attn``, ``norm2``, ``mlp``,
+    ``gate_mlp``); each branch is scaled by tanh of its gate. Its cache is
+    ``{xk, xv}``."""
+    init_fn = staticmethod(vlm_cross_init)
+    apply_fn = staticmethod(vlm_cross_apply)
+
+
 BLOCKS = {
     "layer": BlockDef("layer", DenseLayer, dense_layer_cache),
     "moe_layer": BlockDef("moe_layer", MoELayer, dense_layer_cache),
@@ -308,4 +450,8 @@ BLOCKS = {
     "attn": BlockDef("attn", LocalAttn, local_attn_cache),
     "mlstm": BlockDef("mlstm", MLSTMBlock, mlstm_block_cache),
     "slstm": BlockDef("slstm", SLSTMBlock, slstm_block_cache),
+    "enc": BlockDef("enc", EncLayer, None),
+    "dec": BlockDef("dec", DecLayer, dec_layer_cache),
+    "self": BlockDef("self", DenseLayer, dense_layer_cache),
+    "cross": BlockDef("cross", VLMCross, vlm_cross_cache),
 }

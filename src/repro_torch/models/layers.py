@@ -1,5 +1,6 @@
-"""Shared layers of the model zoo, in torch (dense subset of
-``repro.models.layers``).
+"""Shared layers of the model zoo, in torch (the serving half of
+``repro.models.layers``; ``attention_train`` waits for ROADMAP A9's
+training item).
 
 Layers are plain functions on tensors; parameters come in dict-like
 containers (the ``nn.ParameterDict``s of ``blocks.DenseLayer``) under the
@@ -17,6 +18,10 @@ Attention:
 * ``attention_decode_paged`` -- the same for full attention, through the
   paged decode kernel (``kernels/decode_attention``): the ring [B, W, Kv,
   D] is viewed as a page pool [B·P, page, Kv, D].
+* ``attention_cross_decode`` -- one token against a fixed memory (an
+  encoder's output, image embeddings), unmasked, through the paged decode
+  kernel with the memory as one page a sequence. In prefill the memory
+  goes through ``attention_prefill`` with ``causal=False``.
 """
 from __future__ import annotations
 
@@ -65,6 +70,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.to(F32))).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    xf = x.to(F32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(F32) + bias.to(F32)).to(x.dtype)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -169,8 +183,11 @@ def attention_prefill(q, k, v, *, window=None, causal=True,
                       backend: str = "auto") -> torch.Tensor:
     """Prefill attention from an empty cache: query and key positions are
     both 0..S-1, which is what the reference's ``attention_prefill``
-    receives from a prefill. Runs the flash-attention kernel (B5) on the
-    card, its plain version on the CPU."""
+    receives from a prefill. With ``causal=False`` and no window nothing
+    is masked and k/v may hold Skv != S keys: the reference's
+    ``attention_full`` with every position 0, as its encoder and cross-
+    attention call it. Runs the flash-attention kernel (B5) on the card,
+    its plain version on the CPU."""
     return flash_attention(q, k, v, causal=causal, window=window,
                            backend=backend)
 
@@ -200,12 +217,27 @@ def attention_decode_paged(q, k, v, block_tbl, lengths, *, page: int,
     return o.reshape(b, 1, h, d)
 
 
+def attention_cross_decode(q, k, v, *, backend: str = "auto"
+                           ) -> torch.Tensor:
+    """One token a sequence against its whole memory: q [B, 1, H, D],
+    k/v [B, Se, Kv, D], through the paged decode kernel (B4) with the
+    memory viewed as one page a sequence (table ``arange(B)``, every
+    length ``Se``), both built from k's own shape."""
+    b, se = k.shape[:2]
+    tbl = torch.arange(b, dtype=torch.int32, device=k.device)[:, None]
+    lengths = torch.full((b,), se, dtype=torch.int32, device=k.device)
+    return attention_decode_paged(q, k, v, tbl, lengths, page=se,
+                                  backend=backend)
+
+
 # ---------------------------------------------------------------------------
 # attention block (projections + rope)
 # ---------------------------------------------------------------------------
 
-def attn_params(gen: Optional[torch.Generator], cfg, *, dtype=None):
-    """Parameters of one attention block, in the reference's layout."""
+def attn_params(gen: Optional[torch.Generator], cfg, *, cross=False,
+                dtype=None):
+    """Parameters of one attention block, in the reference's layout; a
+    cross-attention block (``cross``) has no q/k/v biases."""
     dtype = dtype or getattr(torch, cfg.dtype)
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = _device(gen)
@@ -215,7 +247,7 @@ def attn_params(gen: Optional[torch.Generator], cfg, *, dtype=None):
         "wv": dense_init(gen, (d, kv, hd), d, dtype),
         "wo": dense_init(gen, (h, hd, d), h * hd, dtype),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((h, hd), dtype=dtype, device=dev)
         p["bk"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
         p["bv"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
@@ -257,17 +289,30 @@ def attn_out(p, o):
 # ---------------------------------------------------------------------------
 
 def mlp_params(gen: Optional[torch.Generator], cfg, d_ff=None, *,
-               dtype=None):
-    """The gated MLP of the dense, hybrid and ssm blocks (the reference's
-    ungated form serves the encoder-decoder family and is not ported)."""
+               gated=True, dtype=None):
+    """The gated MLP (``w_gate``, ``w_up``, ``w_down``), or the ungated
+    one of the encoder-decoder blocks (``w_up``, ``w_down`` and the biases
+    ``b_up``, ``b_down``, which start at zero)."""
     dtype = dtype or getattr(torch, cfg.dtype)
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    return {"w_gate": dense_init(gen, (d, f), d, dtype),
-            "w_up": dense_init(gen, (d, f), d, dtype),
-            "w_down": dense_init(gen, (f, d), f, dtype)}
+    if gated:
+        return {"w_gate": dense_init(gen, (d, f), d, dtype),
+                "w_up": dense_init(gen, (d, f), d, dtype),
+                "w_down": dense_init(gen, (f, d), f, dtype)}
+    dev = _device(gen)
+    return {"w_up": dense_init(gen, (d, f), d, dtype),
+            "w_down": dense_init(gen, (f, d), f, dtype),
+            "b_up": torch.zeros((f,), dtype=dtype, device=dev),
+            "b_down": torch.zeros((d,), dtype=dtype, device=dev)}
 
 
 def mlp_apply(cfg, p, x):
     act = activation(cfg.act)
-    h = act(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    if "w_gate" in p:
+        h = act(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = act(x @ p["w_up"] + p["b_up"])
+    y = h @ p["w_down"]
+    if "b_down" in p:
+        y = y + p["b_down"]
+    return y

@@ -1,6 +1,6 @@
-"""The model API, in torch (the dense, moe, hybrid and ssm families of
-``repro.models.model``; the encoder-decoder and vlm families wait for
-ROADMAP A9).
+"""The model API, in torch (the serving half of ``repro.models.model``,
+for every family: dense, moe, hybrid, ssm, the encoder-decoder and the
+vlm; the training half waits for ROADMAP A9's training item).
 
 ``build_model(cfg, device, backend)`` returns a ``Model`` (an
 ``nn.Module``) on ``device`` — the card unless the caller asks for
@@ -9,6 +9,9 @@ another (``"cpu"``; without a card the default raises) — with:
                                   ``torch.Generator``; returns state_dict
   load_params(state)           -> adopts a state dict (no copy)
   prefill(batch, cache)        -> (last-pos logits, cache)        [serve]
+                                  (batch: "tokens", and "frames" [B,Se,D]
+                                  for encdec or "image_embeds" [B,Ti,D]
+                                  for vlm, in the model's dtype)
   decode(tokens, cache, page=) -> (logits, cache)                 [serve]
   init_cache(batch, shape_cfg) -> cache dict
 
@@ -17,11 +20,13 @@ The cache dict always contains:
             updated in place
   "len":    [B] int32 tokens generated so far
   "kv_pos": [B, W] int32 positions held in self-attn cache slots (-1 empty)
+and, for the encoder-decoder, "enc_out": [B, Se, D] the encoder's output.
 
 ``params_from_numpy`` carries the reference's ``Model.init_params`` pytree
 (as numpy arrays) into the port's state dict, so both packages can run the
 same weights. ``backend`` is the gate of the model's kernels — flash and
-paged decode attention, the RG-LRU scan, the chunkwise mLSTM —
+paged decode attention (self-attention, the encoder's bidirectional
+attention and cross-attention), the RG-LRU scan, the chunkwise mLSTM —
 (``"auto"`` | ``"ref"`` | ``"cuda"``). The MoE FFN has no kernel (the
 reference's expert products are einsums outside Pallas too).
 """
@@ -59,9 +64,20 @@ def _stackdef(cfg: ModelConfig) -> StackDef:
         n = cfg.num_layers // len(pattern)
         tail = tuple(pattern[: cfg.num_layers - n * len(pattern)])
         return StackDef(pattern, n, B.BLOCKS, tail=tail)
-    raise NotImplementedError(
-        f"model family {fam!r} is not ported to repro_torch yet "
-        "(ROADMAP A9)")
+    if fam == "vlm":
+        k = cfg.cross_attn_every
+        if k < 1 or cfg.num_layers % k:
+            raise ValueError(f"vlm: cross_attn_every={k} does not divide "
+                             f"num_layers={cfg.num_layers}")
+        pattern = ("self",) * (k - 1) + ("cross",)
+        return StackDef(pattern, cfg.num_layers // k, B.BLOCKS)
+    if fam == "encdec":
+        return StackDef(("dec",), cfg.num_layers, B.BLOCKS)
+    raise ValueError(fam)
+
+
+def _enc_stackdef(cfg: ModelConfig) -> StackDef:
+    return StackDef(("enc",), cfg.num_encoder_layers, B.BLOCKS)
 
 
 class Model(nn.Module):
@@ -74,6 +90,8 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         self.backend = backend
         self.stack = _stackdef(cfg)
+        self.enc_stack = _enc_stackdef(cfg) if cfg.family == "encdec" \
+            else None
         dtype = getattr(torch, cfg.dtype)
         # parameters start on the meta device (no storage) until
         # init_params / load_params
@@ -85,13 +103,19 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = B._frozen(L.dense_init(
                 None, (cfg.d_model, cfg.padded_vocab), cfg.d_model, dtype))
+        if self.enc_stack is not None:
+            self.encoder = build_layers(cfg, self.enc_stack)
+            self.enc_norm = B._frozen(torch.empty((cfg.d_model,), dtype=F32,
+                                                  device="meta"))
 
     # -- params ------------------------------------------------------------
 
     def init_params(self, gen: torch.Generator) -> Dict[str, torch.Tensor]:
         """Draw every parameter from ``gen`` (on this model's device) in a
         fixed order: embedding, then each layer in execution order, then
-        an untied head."""
+        an untied head, then each encoder layer (the encoder-decoder).
+        Norms, biases and the VLM's gates start at zero and draw
+        nothing."""
         cfg = self.cfg
         if torch.device(gen.device).type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
@@ -107,6 +131,12 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             state["lm_head"] = L.dense_init(
                 gen, (cfg.d_model, cfg.padded_vocab), cfg.d_model, dtype)
+        if self.enc_stack is not None:
+            for i, kind in enumerate(layer_kinds(self.enc_stack)):
+                init = self.enc_stack.blocks[kind].module.init_fn
+                state.update(_flatten(init(gen, cfg), f"encoder.{i}."))
+            state["enc_norm"] = torch.zeros((cfg.d_model,), dtype=F32,
+                                            device=gen.device)
         self.load_params(state)
         return state
 
@@ -141,6 +171,20 @@ class Model(nn.Module):
             logits = c * torch.tanh(logits / c)
         return logits
 
+    def _encode(self, frames):
+        """Whisper's encoder over precomputed (stubbed) frame embeddings
+        [B, Se, D]: sinusoidal positions added in the frames' dtype, the
+        bidirectional layers, then ``enc_norm``."""
+        cfg = self.cfg
+        b, se = frames.shape[:2]
+        x = frames + _sinusoidal(se, cfg.d_model, frames.dtype,
+                                 frames.device)
+        aux = {"mode": "encode", "backend": self.backend,
+               "q_pos": torch.arange(se, dtype=I32, device=frames.device
+                                     )[None].expand(b, se)}
+        x, _ = apply_stack(cfg, self.enc_stack, self.encoder, x, aux)
+        return L.rms_norm(x, self.enc_norm, cfg.norm_eps)
+
     def _aux_for(self, batch, mode, cache=None, tokens=None):
         aux: Dict[str, Any] = {"mode": mode, "backend": self.backend}
         if mode == "prefill":
@@ -153,6 +197,13 @@ class Model(nn.Module):
             aux["kv_pos"] = cache["kv_pos"]
             w = cache["kv_pos"].shape[1]
             aux["write_slot"] = cache["len"] % w
+        # the memories of cross-attention; in decode the layers read their
+        # cached xk / xv, so the VLM needs no image there
+        if self.cfg.family == "encdec":
+            aux["enc_out"] = (self._encode(batch["frames"])
+                              if mode == "prefill" else cache["enc_out"])
+        if self.cfg.family == "vlm" and mode == "prefill":
+            aux["img"] = batch["image_embeds"]
         return aux
 
     # -- serve -------------------------------------------------------------
@@ -175,6 +226,8 @@ class Model(nn.Module):
             "len": torch.full_like(cache["len"], s),
             "kv_pos": kv_pos.expand(cache["kv_pos"].shape).clone(),
         }
+        if self.cfg.family == "encdec":
+            new_cache["enc_out"] = aux["enc_out"]
         return logits[:, 0], new_cache
 
     @torch.no_grad()
@@ -183,7 +236,8 @@ class Model(nn.Module):
 
         Attention reads the ring through the paged decode kernel with
         pages of ``page`` slots (``None``: the whole ring is one page); W
-        must be a multiple of ``page``. A windowed attention (dense SWA,
+        must be a multiple of ``page`` (cross-attention reads its cached
+        memory as one page a sequence). A windowed attention (dense SWA,
         the hybrid's local window) needs a ring no longer than its window,
         as ``init_cache`` makes it: then the window masks nothing the ring
         holds, and the filled prefix is what the reference attends to.
@@ -236,12 +290,17 @@ class Model(nn.Module):
     def init_cache(self, batch: int, shape_cfg: ShapeConfig):
         """An empty cache (the reference's ``filled=True`` dry-run form is
         not ported)."""
-        dev = self.device
+        cfg, dev = self.cfg, self.device
         w = self._window(shape_cfg)
-        return {"stack": init_stack_cache(self.cfg, self.stack, batch,
-                                          shape_cfg, dev),
-                "len": torch.zeros((batch,), dtype=I32, device=dev),
-                "kv_pos": torch.full((batch, w), -1, dtype=I32, device=dev)}
+        cache = {"stack": init_stack_cache(cfg, self.stack, batch, shape_cfg,
+                                           dev),
+                 "len": torch.zeros((batch,), dtype=I32, device=dev),
+                 "kv_pos": torch.full((batch, w), -1, dtype=I32, device=dev)}
+        if cfg.family == "encdec":
+            cache["enc_out"] = torch.zeros(
+                (batch, cfg.encoder_seq_len, cfg.d_model),
+                dtype=getattr(torch, cfg.dtype), device=dev)
+        return cache
 
 
 def _ring_positions(filled_len: int, w: int) -> torch.Tensor:
@@ -250,6 +309,16 @@ def _ring_positions(filled_len: int, w: int) -> torch.Tensor:
     for p in range(max(0, filled_len - w), filled_len):
         slots[p % w] = p
     return torch.from_numpy(slots)
+
+
+def _sinusoidal(s: int, d: int, dtype, device) -> torch.Tensor:
+    """[1, s, d] sinusoidal positions, computed in float64 (numpy, as the
+    reference) and cast to ``dtype``."""
+    pos = np.arange(s)[:, None]
+    i = np.arange(d // 2)[None]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb).to(device=device, dtype=dtype)[None]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -277,17 +346,20 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     """The reference's ``Model.init_params`` pytree (numpy leaves) as the
     port's state dict, every leaf: layer ``i`` takes slice ``g`` of the
     stacked ``[n_groups, ...]`` leaves of ``stack.scan.{pos}_{kind}``, or
-    the leaves of ``stack.tail.{j}_{kind}``."""
-    stack = _stackdef(cfg)  # raises for families not ported
-    state = {"embed": _to_torch(tree["embed"], device),
-             "final_norm": _to_torch(tree["final_norm"], device)}
-    if "lm_head" in tree:
-        state["lm_head"] = _to_torch(tree["lm_head"], device)
-    for i, (sec, key, g) in enumerate(layer_slots(stack)):
-        for k, a in _flatten(tree["stack"][sec][key]).items():
-            a = np.asarray(a)
-            state[f"layers.{i}.{k}"] = _to_torch(a if g is None else a[g],
-                                                 device)
+    the leaves of ``stack.tail.{j}_{kind}``; encoder layer ``i`` likewise
+    from ``enc_stack``, and ``enc_norm``."""
+    state = {k: _to_torch(tree[k], device)
+             for k in ("embed", "final_norm", "lm_head", "enc_norm")
+             if k in tree}
+    stacks = [("layers", "stack", _stackdef(cfg))]
+    if cfg.family == "encdec":
+        stacks.append(("encoder", "enc_stack", _enc_stackdef(cfg)))
+    for prefix, name, stack in stacks:
+        for i, (sec, key, g) in enumerate(layer_slots(stack)):
+            for k, a in _flatten(tree[name][sec][key]).items():
+                a = np.asarray(a)
+                state[f"{prefix}.{i}.{k}"] = _to_torch(
+                    a if g is None else a[g], device)
     return state
 
 

@@ -2,7 +2,9 @@
 
 A model family is a repeated *group pattern* of typed blocks (dense =
 ("layer",) × L; RecurrentGemma = ("rec", "rec", "attn") × 8 plus a tail
-("rec", "rec"); xLSTM = ("mlstm", "slstm") × 6). The reference stacks
+("rec", "rec"); xLSTM = ("mlstm", "slstm") × 6; Llama-3.2-Vision =
+("self",) × 4 + ("cross",), × 8; Whisper = ("dec",) × 4 and an encoder
+stack ("enc",) × 4). The reference stacks
 each pattern position's parameters on a leading ``n_groups`` axis, runs
 the groups as one ``lax.scan`` and the tail's blocks after it; here the
 layers are ``nn.Module``s in an ``nn.ModuleList`` (groups first, then the
@@ -83,11 +85,12 @@ def init_stack_cache(cfg, stack: StackDef, batch: int, shape_cfg,
     return cache
 
 
-def apply_stack(cfg, stack: StackDef, layers, x, aux, cache):
+def apply_stack(cfg, stack: StackDef, layers, x, aux, cache=None):
     """Run the layers in order. Returns (x, cache); the cache leaves are
-    updated in place."""
+    updated in place. ``cache=None`` runs a stack that keeps none (the
+    encoder's)."""
     for layer, (sec, key, g) in zip(layers, layer_slots(stack)):
-        c = cache[sec].get(key)
+        c = None if cache is None else cache[sec].get(key)
         if c is not None and g is not None:
             c = {k: a[g] for k, a in c.items()}
         x, _ = layer(x, aux, c)

@@ -39,7 +39,9 @@ def test_every_module_is_listed():
                  "repro_torch.sharding",
                  "repro_torch.launch.mesh",
                  "repro_torch.models.moe",
-                 "repro_torch.configs.olmoe_1b_7b"):
+                 "repro_torch.configs.olmoe_1b_7b",
+                 "repro_torch.configs.whisper_tiny",
+                 "repro_torch.configs.llama_3_2_vision_11b"):
         assert must in MODULES, must
 
 
@@ -86,10 +88,10 @@ def test_sharded_sweep_modules_import_neither_jax_nor_the_reference(ctx):
 
 def test_model_modules_import_neither_jax_nor_the_reference(ctx):
     """The model zoo, every ported config and the serving engine."""
-    from repro_torch.configs.base import PORTED_ARCHS
+    from repro_torch.configs.base import ARCH_IDS
     code = _imports_no_reference(
         ctx, [m for m in MODULES if m.startswith("repro_torch.models")]
-        + [f"repro_torch.configs.{a}" for a in PORTED_ARCHS]
+        + [f"repro_torch.configs.{a}" for a in ARCH_IDS]
         + ["repro_torch.serving.engine"])
     assert code == 0, \
         "importing repro_torch.models / configs / serving.engine pulled in " \

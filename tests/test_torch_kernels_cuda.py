@@ -347,8 +347,8 @@ def test_recurrent_models_kernels_match_plain_on_card(cuda_device, arch):
     plain.load_params(state)
     prompts = torch.randint(0, cfg.vocab_size, (2, 300), dtype=torch.int32,
                             device=cuda_device)
-    ko, toks, _, _ = CS._generate(kern, prompts, 256, 4)
-    po, _, _, _ = CS._generate(plain, prompts, 256, 4, forced=toks)
+    ko, toks, _, _, _ = CS._generate(kern, prompts, 256, 4)
+    po, _, _, _, _ = CS._generate(plain, prompts, 256, 4, forced=toks)
     tol = CS.SERVE_F32_TOL[cfg.family]
     for a, b in zip(ko, po):
         torch.testing.assert_close(a, b, atol=tol, rtol=tol)
@@ -382,14 +382,74 @@ def test_dense_and_moe_models_kernels_match_plain_on_card(cuda_device, arch,
     prompts = torch.randint(0, cfg.vocab_size, (2, 300), generator=gen,
                             dtype=torch.int32, device=cuda_device)
     with CS._Routing() as rk:
-        ko, toks, _, _ = CS._generate(kern, prompts, 304, 4)
+        ko, toks, _, _, _ = CS._generate(kern, prompts, 304, 4)
     with CS._Routing() as rp:
-        po, _, _, _ = CS._generate(plain, prompts, 304, 4, forced=toks)
+        po, _, _, _, _ = CS._generate(plain, prompts, 304, 4, forced=toks)
     ring = kern.init_cache(2, ShapeConfig("serve", 304, 2, "decode"))
     assert ring["kv_pos"].shape[1] == (window or 304)
     if cfg.family == "moe":
         CS._flips(cfg, cfg.num_layers, rk.calls, rp.calls)
     CS._compare(cfg, ko, po, CS.SERVE_F32_TOL[cfg.family])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers,every", [("whisper_tiny", 2, 0),
+                                               ("llama_3_2_vision_11b", 4, 2)])
+def test_encdec_and_vlm_models_kernels_match_plain_on_card(cuda_device, arch,
+                                                           layers, every):
+    """Full width in float32, the depth cut (Whisper: 2 decoder and 2
+    encoder layers over its 1500 frames; the VLM: ("self", "cross") x 2
+    over 6400 image tokens, a cross layer every 2nd so that 4 layers hold
+    two), the gates and biases drawn non-zero
+    (``liven``): prefill of 300 tokens and 4 decode steps through the
+    kernels and through their plain versions. Logits, ``enc_out`` and the
+    cross caches within the family's SERVE_F32_TOL, ``len`` / ``kv_pos``
+    equal (``_compare``, ``_compare_caches``); the attention kernels
+    launched as ``attention_launches`` says."""
+    import dataclasses
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(CS.get_config(arch), num_layers=layers,
+                              dtype="float32")
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, num_encoder_layers=layers)
+    else:
+        cfg = dataclasses.replace(cfg, cross_attn_every=every)
+    kern = build_model(cfg, cuda_device, backend="cuda")
+    state = kern.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    drawn = CS.liven(state)
+    assert drawn["gates"] + drawn["biases"] > 0
+    plain = build_model(cfg, cuda_device, backend="ref")
+    plain.load_params(state)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 300), generator=gen,
+                            dtype=torch.int32, device=cuda_device)
+    extra = CS.memory_inputs(cfg, 2, cuda_device)
+    before = {k: v.launches for k, v in CS.RECURRENT_KERNELS.items()}
+    ko, toks, _, _, kcache = CS._generate(kern, prompts, 304, 4, extra=extra)
+    launched = {k: v.launches - before[k]
+                for k, v in CS.RECURRENT_KERNELS.items()}
+    po, _, _, _, pcache = CS._generate(plain, prompts, 304, 4, forced=toks,
+                                       extra=extra)
+    assert launched == {"rg_lru": 0, "mlstm": 0,
+                        **CS.attention_launches(cfg, 4)}
+    tol = CS.SERVE_F32_TOL[cfg.family]
+    CS._compare(cfg, ko, po, tol)
+    CS._compare_caches(cfg, kcache, pcache, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,skv,h,hkv,d,dtype", CS.FLASH_CROSS)
+def test_flash_attention_cross_on_card(cuda_device, b, s, skv, h, hkv, d,
+                                       dtype):
+    """The flash kernel without a mask over keys of their own length
+    (Whisper's encoder and cross-attention, the VLM's cross-attention,
+    and S / Skv off every tile), q and v at ``AMP``: within TOL (atol +
+    rtol |plain|) of the plain version, whose outputs have an rms of at
+    least MIN_RMS."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    case = CS.flash_cross(gen, cuda_device, b, s, skv, h, hkv, d, dtype)
+    assert case["tol_share"] <= 1.0
+    assert case["rms_plain"] >= CS.MIN_RMS
 
 
 @pytest.mark.cuda
@@ -403,9 +463,12 @@ def test_decode_attention_split_edges_on_card(cuda_device, dtype, b, hkv, g,
                                               d, page, p):
     """The split-KV kernel at lengths on its own splits' edges, 0 beside a
     full row, and holes among many short splits (chip_smoke.py's
-    ``decode_edges``), at the serve paths' shapes too."""
+    ``decode_edges``, q and v at ``AMP``), at the serve paths' shapes
+    too: within TOL, every live row's plain output of rms MIN_RMS or more."""
     gen = torch.Generator(device=cuda_device).manual_seed(4)
-    CS.decode_edges(gen, cuda_device, b, hkv, g, d, page, p, dtype)
+    case = CS.decode_edges(gen, cuda_device, b, hkv, g, d, page, p, dtype)
+    assert case["tol_share"] <= 1.0
+    assert case["min_rms_plain"] >= CS.MIN_RMS
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
-"""The port's dense decoder LM against the JAX reference: configs, the
-layers, and prefill + decode through the model with the reference's
-weights carried across by ``params_from_numpy``. Tolerance: 1e-5 in
-float32, 2e-2 in bfloat16 (both rounding orders differ; bf16 rounds at
-different places in the two frameworks)."""
+"""The port's LMs against the JAX reference: configs, the layers, and
+prefill + decode through the model with the reference's weights carried
+across by ``params_from_numpy`` (every family; the encoder-decoder's and
+the VLM's blocks are held one by one in ``test_torch_encdec_vlm.py``).
+Tolerance: 1e-5 in float32, 2e-2 in bfloat16 (both rounding orders
+differ; bf16 rounds at different places in the two frameworks)."""
 import contextlib
 import dataclasses
 
@@ -33,7 +34,7 @@ def _cfgs(**kw):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", TCFG.PORTED_ARCHS)
+@pytest.mark.parametrize("arch", TCFG.ARCH_IDS)
 def test_config_matches_reference_field_for_field(arch):
     j, t = JCFG.get_config(arch), TCFG.get_config(arch.replace("_", "-"))
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
@@ -53,10 +54,7 @@ def test_reduced_config_matches_reference(kw):
 
 
 def test_get_config_refuses_unported_and_unknown_archs():
-    for arch in ("whisper_tiny", "llama_3_2_vision_11b"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            TCFG.get_config(arch)
-    assert len(TCFG.PORTED_ARCHS) == 8
+    assert len(TCFG.ARCH_IDS) == 10
     with pytest.raises(ValueError, match="unknown arch"):
         TCFG.get_config("gpt5")
     assert set(TCFG.ARCH_IDS) == set(JCFG.ARCH_IDS)
@@ -139,16 +137,61 @@ def test_paged_route_equals_attention_decode(page, filled):
 # the model, with the reference's weights
 # ---------------------------------------------------------------------------
 
+#: leaves that start at zero in both packages: the VLM's cross gates
+#: (tanh(0) = 0 would hide its cross layers) and the ungated MLP's biases
+ZERO_LEAVES = ("gate_attn", "gate_mlp", "b_up", "b_down")
+
+
+def nonzero_gates_and_biases(tree, seed=0):
+    """``tree`` (numpy leaves) with every ``ZERO_LEAVES`` leaf drawn from a
+    seeded generator: gates with |tanh| in [0.3, 0.9] and either sign,
+    biases ~ N(0, 0.1), in each leaf's dtype."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, a):
+        name = getattr(path[-1], "key", None)
+        if name in ("gate_attn", "gate_mlp"):
+            g = np.arctanh(rng.uniform(0.3, 0.9, a.shape)) \
+                * rng.choice([-1.0, 1.0], a.shape)
+            return g.astype(a.dtype)
+        if name in ("b_up", "b_down"):
+            return (0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
+        return a
+    return jax.tree_util.tree_map_with_path(draw, tree)
+
+
 def _models(dtype, num_layers=2, arch="qwen3_1_7b", **kw):
     jc = JCFG.get_config(arch).reduced(num_layers=num_layers, dtype=dtype,
                                        **kw)
     tc = TCFG.get_config(arch).reduced(num_layers=num_layers, dtype=dtype,
                                        **kw)
     jm = j_build(jc)
-    jp = jm.init_params(jax.random.PRNGKey(0))
+    tree = nonzero_gates_and_biases(
+        jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(0))))
+    jp = jax.tree.map(jnp.asarray, tree)
     tm = build_model(tc, "cpu")
-    tm.load_params(params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu"))
+    tm.load_params(params_from_numpy(tree, tc, "cpu"))
     return jm, jp, tm
+
+
+def memory_inputs(cfg, b, seed=0):
+    """The batch's memory for cross-attention, as numpy in ``cfg``'s dtype:
+    ``frames`` [b, Se, D] (encdec) or ``image_embeds`` [b, Ti, D] (vlm);
+    {} for the other families."""
+    n = {"encdec": ("frames", cfg.encoder_seq_len),
+         "vlm": ("image_embeds", cfg.num_image_tokens)}.get(cfg.family)
+    if n is None:
+        return {}
+    a = np.random.default_rng(seed).standard_normal(
+        (b, n[1], cfg.d_model)).astype(np.float32)
+    return {n[0]: a.astype(jnp.dtype(cfg.dtype))}
+
+
+def to_torch(a):
+    """A numpy array (bfloat16 included) as a CPU tensor, exactly."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _np(x):
@@ -166,7 +209,10 @@ def _close(a, b, dtype, what):
 #: its ring of 32 wraps in prefill (a prompt of 40) and the window binds
 #: in both phases; OLMoE's prompt of 20 x 2 rows routes 80 assignments
 #: into 4 experts of capacity 32 (at capacity factor 0.5, of 16: the
-#: prefill drops assignments), and Grok adds the logit softcap.
+#: prefill drops assignments), and Grok adds the logit softcap. Whisper
+#: (4 decoder and 2 encoder layers, Se 16) and the VLM (("self",
+#: "cross") x 2, Ti 16) cross-attend to memories longer than the prompt
+#: and shorter, with their gates and biases drawn non-zero.
 PREFILL_DECODE = (
     [("qwen3_1_7b", dtype, s, w, page, {})
      for dtype in ("float32", "bfloat16")
@@ -177,7 +223,11 @@ PREFILL_DECODE = (
        ("olmoe_1b_7b", "float32", 20, 32, 8, {}),
        ("olmoe_1b_7b", "float32", 20, 32, 8, {"capacity_factor": 0.5}),
        ("olmoe_1b_7b", "bfloat16", 20, 24, 4, {}),
-       ("grok_1_314b", "float32", 7, 8, 4, {})])
+       ("grok_1_314b", "float32", 7, 8, 4, {})]
+    + [(arch, dtype, s, w, page, {})
+       for arch, s, w, page in (("whisper_tiny", 7, 12, 4),
+                                ("llama_3_2_vision_11b", 20, 24, 8))
+       for dtype in ("float32", "bfloat16")])
 
 
 def _case_id(case):
@@ -193,28 +243,36 @@ def _case_id(case):
                          ids=[_case_id(c) for c in PREFILL_DECODE])
 def test_prefill_and_decode_match_reference(arch, dtype, s, w, page, kw):
     """Prefill, then three decode steps (five when the ring wraps: prompt +
-    decode > W), comparing logits, the K/V cache, len and kv_pos. The MoE
-    family's bf16 reference runs op by op (``jax.disable_jit``: under
-    ``jit`` XLA rounds the expert products' bf16 elsewhere)."""
+    decode > W), comparing logits, every cache leaf (the K/V rings, the
+    cross caches ``xk``/``xv``, the encoder's output), len and kv_pos. The
+    MoE family's and Whisper's bf16 reference runs op by op
+    (``jax.disable_jit``: under ``jit`` XLA rounds the expert products'
+    and the tanh GELU's bf16 elsewhere)."""
     from repro.configs.base import ShapeConfig as JShape
     from repro_torch.configs.base import ShapeConfig as TShape
     jm, jp, tm = _models(dtype, arch=arch, **kw)
-    op_by_op = jax.disable_jit if (jm.cfg.family == "moe"
+    op_by_op = jax.disable_jit if (jm.cfg.family in ("moe", "encdec", "vlm")
                                    and dtype == "bfloat16") \
         else contextlib.nullcontext
     toks = np.random.default_rng(s).integers(1, 512, (2, s)).astype(np.int32)
+    batch = {"tokens": toks, **memory_inputs(jm.cfg, 2, seed=s)}
     jc = jm.init_cache(2, JShape("serve", w, 2, "decode"))
     tcache = tm.init_cache(2, TShape("serve", w, 2, "decode"))
     with op_by_op():
-        jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
-    tl, tcache = tm.prefill({"tokens": torch.from_numpy(toks)}, tcache)
+        jl, jc = jm.prefill(jp, {k: jnp.asarray(a) for k, a in batch.items()},
+                            jc)
+    tl, tcache = tm.prefill({k: to_torch(a) for k, a in batch.items()},
+                            tcache)
     _close(tl, jl, dtype, "prefill logits")
-    key = next(iter(tcache["stack"]["scan"]))
     steps = 3 if s + 3 <= w else 5
     for step in range(steps + 1):
-        jkv, tkv = jc["stack"]["scan"][key], tcache["stack"]["scan"][key]
-        for n in ("k", "v"):
-            _close(tkv[n], jkv[n], dtype, f"{n} after step {step}")
+        for key, leaves in tcache["stack"]["scan"].items():
+            for n, a in leaves.items():
+                _close(a, jc["stack"]["scan"][key][n], dtype,
+                       f"{key}.{n} after step {step}")
+        if "enc_out" in jc:
+            _close(tcache["enc_out"], jc["enc_out"], dtype,
+                   f"enc_out after step {step}")
         np.testing.assert_array_equal(tcache["len"].numpy(), jc["len"])
         np.testing.assert_array_equal(tcache["kv_pos"].numpy(),
                                       jc["kv_pos"])
@@ -289,9 +347,11 @@ def test_model_refuses_what_it_does_not_run():
     ms.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="window"):
         ms.decode(torch.zeros((1, 1), dtype=torch.int32), cache)
-    for fam in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            build_model(dataclasses.replace(tc, family=fam), "cpu")
+    # the VLM's pattern needs cross_attn_every to divide num_layers, as
+    # the reference asserts
+    vlm = TCFG.get_config("llama_3_2_vision_11b").reduced(num_layers=3)
+    with pytest.raises(ValueError, match="cross_attn_every"):
+        build_model(vlm, "cpu")
     with pytest.raises(ValueError, match="backend"):
         build_model(tc, "cpu", backend="pallas")
 
