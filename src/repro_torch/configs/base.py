@@ -4,14 +4,13 @@
 here describes the same architecture as the reference's, field for field,
 and ``reduced`` cuts it to the same small size. ``get_config`` returns
 each of the reference's ten archs. ``OptimizerConfig``, ``TrainConfig``,
-``MeshConfig`` and ``MedicConfig`` are not ported yet (ROADMAP A9,
-training).
+``MeshConfig`` and ``MedicConfig`` are the reference's, field for field.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -128,6 +127,60 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+# ---------------------------------------------------------------------------
+# Train / serve / mesh configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"     # "bfloat16" saves 4 bytes/param
+    grad_compression: str = "none"    # "none" | "int8"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    microbatches: int = 1             # gradient accumulation
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    log_every: int = 10
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+@dataclass(frozen=True)
+class MedicConfig:
+    """MeDiC policy parameters (Fig 3 thresholds + sampling)."""
+    mostly_hit_threshold: float = 0.7
+    mostly_miss_threshold: float = 0.2
+    sampling_interval: int = 1024       # accesses between re-classification
+    enable_bypass: bool = True          # WByp
+    enable_insertion: bool = True       # WIP
+    enable_scheduler: bool = True       # WMS
 
 
 ARCH_IDS = (

@@ -8,7 +8,9 @@ the repository root, named by the hash of its source, and loaded with
 
 Each ``Kernel`` keeps ``launches``, the number of launches its wrapper
 made: the wrapper adds one after each successful launch and nowhere
-else, so a run can show that it went through the kernel.
+else, so a run can show that it went through the kernel. No kernel has a
+backward: the wrappers that take model activations refuse an input that
+requires grad (``refuse_grad``).
 """
 from __future__ import annotations
 
@@ -145,6 +147,20 @@ def resolve_backend(kind: str, backend: str, device) -> str:
         raise ValueError(f"{kind}_backend='cuda' needs CUDA tensors; the "
                          "CUDA kernel has no CPU form (use 'ref' or 'auto')")
     return backend
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires grad: the
+    Hopper kernels write their outputs through raw pointers and have no
+    backward, so their outputs carry no ``grad_fn`` and a training step
+    through one would silently leave its inputs' producers without a
+    gradient. Training runs the plain versions under autograd."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the Hopper kernel has no backward; an input "
+            "requires grad (train through the plain version, "
+            "backend='ref')")
 
 
 def check_tensor(kernel: str, name: str, t, dtype, shape, device) -> None:

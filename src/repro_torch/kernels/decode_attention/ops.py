@@ -92,6 +92,7 @@ def device_plan(device, b: int, hkv: int, page: int, p: int) -> SplitPlan:
 def paged_decode_attention_cuda(q, k_pool, v_pool, block_tbl, lengths):
     """The Hopper kernel: [B, Hkv, G, D] from one wrapper call (the split
     kernel, then the combine kernel)."""
+    _build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("paged_decode_attention_cuda needs CUDA tensors")

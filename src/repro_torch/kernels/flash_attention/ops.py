@@ -35,6 +35,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
     """The Hopper kernel: [B, S, H, D] from one launch."""
+    _build.refuse_grad("flash_attention", q, k, v)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("flash_attention_cuda needs CUDA tensors")

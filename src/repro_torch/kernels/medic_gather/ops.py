@@ -93,12 +93,14 @@ def _launch(pools, block_tbl, stacked: bool):
 
 def medic_gather_cuda(pool, block_tbl):
     """The Hopper kernel: [B, P, page, H, D] from one launch."""
+    _build.refuse_grad("medic_gather", pool)
     return _launch((pool,), block_tbl, False)
 
 
 def medic_gather_pools_cuda(pools, block_tbl) -> torch.Tensor:
     """The Hopper kernel over several pools: [n_pools, B, P, page, H, D]
     from one launch."""
+    _build.refuse_grad("medic_gather", *pools)
     return _launch(pools, block_tbl, True)
 
 

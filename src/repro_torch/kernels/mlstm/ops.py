@@ -49,6 +49,8 @@ def scratch_floats(b: int, s: int, h: int) -> int:
 def mlstm_cuda(q, k, v, li, lf, state=None):
     """The Hopper kernel: (h, (C, n, m)) from one launch call. The outputs
     and the scratch are views of one allocation."""
+    _build.refuse_grad("mlstm", q, k, v, li, lf,
+                       *(state or ()))
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("mlstm_cuda needs CUDA tensors")

@@ -89,6 +89,7 @@ def aligned16(*tensors) -> bool:
 def rg_lru_cuda(a, b, h0, *, plan: Optional[RgLruPlan] = None):
     """The Hopper kernel: h [B, S, W] float32 from one launch, under
     ``plan`` (``plan_rg_lru``'s for these tensors by default)."""
+    _build.refuse_grad("rg_lru", a, b, h0)
     dev = a.device
     if dev.type != "cuda":
         raise ValueError("rg_lru_cuda needs CUDA tensors")

@@ -1,10 +1,14 @@
 """Block definitions, in torch (every block of ``repro.models.blocks``).
 
-Block apply signature: (cfg, p, x, aux, cache) -> (x, cache)
+Block apply signature: (cfg, p, x, aux, cache) -> (x, cache, aux_loss),
+the reference's; a block module's ``forward(x, aux, cache)`` returns the
+same. ``aux_loss`` is the MoE layer's load-balancing loss (a float32
+scalar tensor), and 0.0 for every other block (no launch to make a zero).
 
 ``aux`` carries the step's shared context:
-  "mode" in {"encode", "prefill", "decode"}, "backend" (the kernels'
-  gate), "q_pos" [B,S] positions of the current tokens,
+  "mode" in {"train", "encode", "prefill", "decode"}, "backend" (the
+  kernels' gate; serving only), "q_pos" [B,S] positions of the current
+  tokens,
   decode only: "write_slot" [B] ring index of the new token, "kv_pos"
   [B,W] positions held in the ring (-1 empty), and the paged view of the
   ring — "page", "block_tbl" i32[B,P], "lengths" i32[B];
@@ -15,11 +19,19 @@ Caches are per-layer slices of the stacked cache handed in by the stack
 loop, and are updated IN PLACE (the reference returns new arrays; writing
 into the slice saves a copy of the whole cache per step).
 
+Training (mode "train", no cache; the encoder of ``Model.loss`` too) runs
+the plain versions under autograd, never a kernel gate: the reference's
+``attention_train`` for self-attention, ``attention_full`` for the
+encoder's and for cross-attention, the plain RG-LRU loop, the plain
+chunkwise mLSTM and the sLSTM loop. The Hopper kernels have no backward,
+and their wrappers refuse an input that requires grad.
+
 Ported: the dense and MoE layers, RecurrentGemma's RG-LRU block and local
 attention, xLSTM's mLSTM and sLSTM blocks, Whisper's encoder and decoder
 layers and the VLM's gated cross-attention layer (its self-attention
 layers are dense layers under the kind "self"). The serve path drops the
-MoE layer's aux loss, as the reference's ``prefill`` and ``decode`` do.
+MoE layer's aux loss at the model, as the reference's ``prefill`` and
+``decode`` do.
 """
 from __future__ import annotations
 
@@ -37,20 +49,30 @@ from repro_torch.models.stack import BlockDef
 F32 = torch.float32
 
 
+def _backend(aux) -> str:
+    """The kernels' gate of a block: ``"ref"`` (the plain versions) in
+    training, whatever the model's gate says; the model's otherwise."""
+    return "ref" if aux["mode"] == "train" else aux.get("backend", "auto")
+
+
 # ---------------------------------------------------------------------------
 # shared attention plumbing
 # ---------------------------------------------------------------------------
 
 def _self_attention(cfg, p, x, aux, cache, *, window=None, use_rope=True,
                     causal=True):
-    """Returns (attn_out, cache) for prefill and decode."""
+    """Returns (attn_out, cache): ``attention_train`` in training (no
+    cache), the kernels' routes in prefill and decode."""
     mode = aux["mode"]
+    q, k, v = L.attn_project_qkv(cfg, p, x, aux["q_pos"], use_rope=use_rope)
+    if mode == "train":
+        o = L.attention_train(q, k, v, aux["q_pos"], aux["q_pos"],
+                              window=window, causal=causal)
+        return L.attn_out(p, o), None
     backend = aux.get("backend", "auto")
     if mode not in ("prefill", "decode") or cache is None:
-        raise NotImplementedError(
-            f"mode {mode!r} without a cache (training) is not ported to "
-            "repro_torch yet (ROADMAP A9)")
-    q, k, v = L.attn_project_qkv(cfg, p, x, aux["q_pos"], use_rope=use_rope)
+        raise ValueError(f"self-attention in mode {mode!r} needs a cache "
+                         "(prefill, decode) or mode 'train'")
 
     if mode == "prefill":
         o = L.attention_prefill(q, k, v, window=window, causal=causal,
@@ -98,9 +120,16 @@ def _cross_attention(cfg, p, x, mem, aux, cache):
     as ``xk``/``xv`` in the cache's dtype; in decode they are read from
     it. Nothing is masked (the reference's ``attention_full`` with all
     positions 0 and ``causal=False``): the flash kernel over the memory in
-    prefill, the paged decode kernel over it as one page in decode."""
-    backend = aux.get("backend", "auto")
+    prefill, the paged decode kernel over it as one page in decode, and
+    ``attention_full`` itself in training."""
     q = L._proj(x, p["wq"])
+    if aux["mode"] == "train":
+        k, v = L._proj(mem, p["wk"]), L._proj(mem, p["wv"])
+        qpos = torch.zeros(q.shape[:2], dtype=torch.int32, device=q.device)
+        kpos = torch.zeros(k.shape[:2], dtype=torch.int32, device=q.device)
+        o = L.attention_full(q, k, v, qpos, kpos, causal=False)
+        return L.attn_out(p, o), None
+    backend = aux.get("backend", "auto")
     if aux["mode"] == "decode" and cache is not None:
         o = L.attention_cross_decode(q, cache["xk"], cache["xv"],
                                      backend=backend)
@@ -144,7 +173,7 @@ def dense_layer_apply(cfg, p, x, aux, cache):
     x = x + a
     h = L.rms_norm(x, p.norm2, cfg.norm_eps)
     x = x + L.mlp_apply(cfg, p.mlp, h)
-    return x, cache
+    return x, cache, 0.0
 
 
 def dense_layer_cache(cfg, batch, shape_cfg, device):
@@ -169,8 +198,8 @@ def moe_layer_apply(cfg, p, x, aux, cache):
                                window=cfg.sliding_window)
     x = x + a
     h = L.rms_norm(x, p.norm2, cfg.norm_eps)
-    y, _ = MOE.moe_apply(cfg, p.moe, h)
-    return x + y, cache
+    y, aux_loss = MOE.moe_apply(cfg, p.moe, h)
+    return x + y, cache, aux_loss
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -185,7 +214,7 @@ class _Block(nn.Module):
     storage."""
 
     init_fn = None    # (generator or None, cfg) -> parameter dict
-    apply_fn = None   # (cfg, p, x, aux, cache) -> (x, cache)
+    apply_fn = None   # (cfg, p, x, aux, cache) -> (x, cache, aux_loss)
 
     def __init__(self, cfg):
         super().__init__()
@@ -229,12 +258,11 @@ def rec_block_init(gen: Optional[torch.Generator], cfg):
 
 def rec_block_apply(cfg, p, x, aux, cache):
     h = L.rms_norm(x, p.norm1, cfg.norm_eps)
-    y, cache = REC.rglru_apply(cfg, p.rec, h, cache,
-                               backend=aux.get("backend", "auto"))
+    y, cache = REC.rglru_apply(cfg, p.rec, h, cache, backend=_backend(aux))
     x = x + y
     h = L.rms_norm(x, p.norm2, cfg.norm_eps)
     x = x + L.mlp_apply(cfg, p.mlp, h)
-    return x, cache
+    return x, cache, 0.0
 
 
 def rec_block_cache(cfg, batch, shape_cfg, device):
@@ -248,7 +276,7 @@ def local_attn_apply(cfg, p, x, aux, cache):
     x = x + a
     h = L.rms_norm(x, p.norm2, cfg.norm_eps)
     x = x + L.mlp_apply(cfg, p.mlp, h)
-    return x, cache
+    return x, cache, 0.0
 
 
 def local_attn_cache(cfg, batch, shape_cfg, device):
@@ -281,9 +309,8 @@ def mlstm_block_init(gen: Optional[torch.Generator], cfg):
 
 def mlstm_block_apply(cfg, p, x, aux, cache):
     h = L.rms_norm(x, p.norm, cfg.norm_eps)
-    y, cache = XL.mlstm_apply(cfg, p.mlstm, h, cache,
-                              backend=aux.get("backend", "auto"))
-    return x + y, cache
+    y, cache = XL.mlstm_apply(cfg, p.mlstm, h, cache, backend=_backend(aux))
+    return x + y, cache, 0.0
 
 
 def mlstm_block_cache(cfg, batch, shape_cfg, device):
@@ -303,7 +330,7 @@ def slstm_block_apply(cfg, p, x, aux, cache):
     x = x + y
     h = L.rms_norm(x, p.norm2, cfg.norm_eps)
     x = x + L.mlp_apply(cfg, p.mlp, h)
-    return x, cache
+    return x, cache, 0.0
 
 
 def slstm_block_cache(cfg, batch, shape_cfg, device):
@@ -340,12 +367,16 @@ def enc_layer_apply(cfg, p, x, aux, cache):
     h = L.rms_norm(x, p.norm1, cfg.norm_eps)
     q, k, v = L.attn_project_qkv(cfg, p.attn, h, aux["q_pos"],
                                  use_rope=False)
-    o = L.attention_prefill(q, k, v, causal=False,
-                            backend=aux.get("backend", "auto"))
+    if aux["mode"] == "train":
+        o = L.attention_full(q, k, v, aux["q_pos"], aux["q_pos"],
+                             causal=False)
+    else:
+        o = L.attention_prefill(q, k, v, causal=False,
+                                backend=aux.get("backend", "auto"))
     x = x + L.attn_out(p.attn, o)
     h = L.rms_norm(x, p.norm2, cfg.norm_eps)
     x = x + L.mlp_apply(cfg, p.mlp, h)
-    return x, None
+    return x, None, 0.0
 
 
 def dec_layer_init(gen: Optional[torch.Generator], cfg):
@@ -372,7 +403,7 @@ def dec_layer_apply(cfg, p, x, aux, cache):
     x = x + a
     h = L.rms_norm(x, p.norm3, cfg.norm_eps)
     x = x + L.mlp_apply(cfg, p.mlp, h)
-    return x, cache
+    return x, cache, 0.0
 
 
 def dec_layer_cache(cfg, batch, shape_cfg, device):
@@ -424,7 +455,7 @@ def vlm_cross_apply(cfg, p, x, aux, cache):
     x = x + torch.tanh(p.gate_attn).to(x.dtype) * a
     h = L.rms_norm(x, p.norm2, cfg.norm_eps)
     x = x + torch.tanh(p.gate_mlp).to(x.dtype) * L.mlp_apply(cfg, p.mlp, h)
-    return x, cache
+    return x, cache, 0.0
 
 
 def vlm_cross_cache(cfg, batch, shape_cfg, device):

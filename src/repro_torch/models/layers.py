@@ -1,6 +1,5 @@
-"""Shared layers of the model zoo, in torch (the serving half of
-``repro.models.layers``; ``attention_train`` waits for ROADMAP A9's
-training item).
+"""Shared layers of the model zoo, in torch (port of
+``repro.models.layers``).
 
 Layers are plain functions on tensors; parameters come in dict-like
 containers (the ``nn.ParameterDict``s of ``blocks.DenseLayer``) under the
@@ -11,6 +10,11 @@ Attention:
 
 * ``attention_full``    -- unblocked attention with explicit positions
   (the plain path and the oracle; ring buffers mask through ``kv_pos``).
+* ``attention_train``   -- training attention, plain tensor code that
+  autograd differentiates: ``attention_full`` up to the chunk threshold,
+  else the chunked online softmax (``_block_attn`` / ``_combine``) with
+  the reference's chunks and its SWA band. No kernel: the Hopper kernels
+  have no backward.
 * ``attention_prefill`` -- prefill from an empty cache (positions
   0..S-1), through the flash-attention kernel (``kernels/flash_attention``).
 * ``attention_decode``  -- one-token attention against the ring cache with
@@ -152,6 +156,30 @@ def _softcap(logits, cap: Optional[float]):
     return cap * torch.tanh(logits / cap)
 
 
+def _block_attn(q, k, v, qpos, kpos, *, window, causal, softcap, scale):
+    """One flash block. q:[B,Q,Kv,G,D] k,v:[B,C,Kv,D] -> (s_max, p_sum, pv),
+    the block's statistics in float32 for the online-softmax combine."""
+    logits = torch.einsum("bqkgd,bckd->bqkgc", q.to(F32), k.to(F32)) * scale
+    logits = _softcap(logits, softcap)
+    msk = _mask(qpos, kpos, window, causal)[:, :, None, None, :]
+    logits = torch.where(msk, logits, NEG_INF)
+    s_max = torch.amax(logits, dim=-1)                    # [B,Q,Kv,G]
+    p = torch.exp(logits - s_max[..., None])
+    p = torch.where(msk, p, 0.0)
+    p_sum = torch.sum(p, dim=-1)
+    pv = torch.einsum("bqkgc,bckd->bqkgd", p, v.to(F32))
+    return s_max, p_sum, pv
+
+
+def _combine(m, l, acc, s_max, p_sum, pv):
+    m_new = torch.maximum(m, s_max)
+    alpha = torch.exp(m - m_new)
+    beta = torch.exp(s_max - m_new)
+    l_new = l * alpha + p_sum * beta
+    acc_new = acc * alpha[..., None] + pv * beta[..., None]
+    return m_new, l_new, acc_new
+
+
 def _group(q, num_kv):
     """[B,S,H,D] -> [B,S,Kv,G,D]"""
     b, s, h, d = q.shape
@@ -177,6 +205,53 @@ def attention_full(q, k, v, q_pos, kv_pos, *, window=None, causal=True,
     w = torch.where(msk, w, 0.0)  # rows with no valid kv -> 0
     o = torch.einsum("bqkgs,bskd->bqkgd", w, v.to(F32))
     return _ungroup(o).to(q.dtype)
+
+
+def attention_train(q, k, v, q_pos, kv_pos, *, window=None, causal=True,
+                    softcap=None, q_chunk=512, kv_chunk=512) -> torch.Tensor:
+    """Training attention (the reference's AD-friendly flash attention).
+
+    Up to ``max(q_chunk, 1024)`` queries, or when the chunks do not divide
+    the lengths, it is ``attention_full``. Otherwise each query chunk runs
+    an online softmax over key chunks: all of them, or, causal with a
+    window, the band of ``window // kv_chunk + 2`` chunks ending at its
+    diagonal. Band chunks before the first (the reference clips their
+    index and masks them whole) leave the running statistics exactly as
+    they are, so they are skipped."""
+    b, s, h, d = q.shape
+    num_kv = k.shape[2]
+    if s <= max(q_chunk, 1024) or s % q_chunk or k.shape[1] % kv_chunk:
+        return attention_full(q, k, v, q_pos, kv_pos, window=window,
+                              causal=causal, softcap=softcap)
+    sk = k.shape[1]
+    nq, nk = s // q_chunk, sk // kv_chunk
+    g = h // num_kv
+    scale = 1.0 / math.sqrt(d)
+    qg = _group(q, num_kv).reshape(b, nq, q_chunk, num_kv, g, d)
+    kb = k.reshape(b, nk, kv_chunk, num_kv, d)
+    vb = v.reshape(b, nk, kv_chunk, num_kv, d)
+    qp = q_pos.expand(b, s).reshape(b, nq, q_chunk)
+    kp = kv_pos.expand(b, sk).reshape(b, nk, kv_chunk)
+    banded = window is not None and causal
+    wblocks = min(nk, window // kv_chunk + 2) if banded else nk
+    outs = []
+    for i in range(nq):
+        m = torch.full((b, q_chunk, num_kv, g), NEG_INF, dtype=F32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, q_chunk, num_kv, g, d), dtype=F32,
+                          device=q.device)
+        js = range(i - wblocks + 1, i + 1) if banded else range(nk)
+        for j in js:
+            if j < 0:
+                continue
+            jj = min(j, nk - 1)      # the reference's clip
+            stats = _block_attn(qg[:, i], kb[:, jj], vb[:, jj], qp[:, i],
+                                kp[:, jj], window=window, causal=causal,
+                                softcap=softcap, scale=scale)
+            m, l, acc = _combine(m, l, acc, *stats)
+        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+    return _ungroup(torch.stack(outs, 1).reshape(b, s, num_kv, g, d))
 
 
 def attention_prefill(q, k, v, *, window=None, causal=True,

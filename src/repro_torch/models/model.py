@@ -1,6 +1,6 @@
-"""The model API, in torch (the serving half of ``repro.models.model``,
-for every family: dense, moe, hybrid, ssm, the encoder-decoder and the
-vlm; the training half waits for ROADMAP A9's training item).
+"""The model API, in torch (port of ``repro.models.model``, for every
+family: dense, moe, hybrid, ssm, the encoder-decoder and the vlm; the
+dry run's specs and sharding trees wait for ROADMAP A9's dry-run item).
 
 ``build_model(cfg, device, backend)`` returns a ``Model`` (an
 ``nn.Module``) on ``device`` — the card unless the caller asks for
@@ -8,6 +8,7 @@ another (``"cpu"``; without a card the default raises) — with:
   init_params(generator)       -> fills the parameters from a
                                   ``torch.Generator``; returns state_dict
   load_params(state)           -> adopts a state dict (no copy)
+  loss(batch)                  -> (scalar loss, metrics)          [train]
   prefill(batch, cache)        -> (last-pos logits, cache)        [serve]
                                   (batch: "tokens", and "frames" [B,Se,D]
                                   for encdec or "image_embeds" [B,Ti,D]
@@ -21,6 +22,14 @@ The cache dict always contains:
   "len":    [B] int32 tokens generated so far
   "kv_pos": [B, W] int32 positions held in self-attn cache slots (-1 empty)
 and, for the encoder-decoder, "enc_out": [B, Se, D] the encoder's output.
+
+The parameters are frozen (``requires_grad=False``) as built; training
+either makes them trainable with one explicit ``model.requires_grad_(True)``
+or, as ``repro_torch.optim.make_train_step`` does, runs ``loss`` through
+``torch.func.functional_call`` with a dict of leaf tensors. ``loss`` runs
+the plain versions under autograd, never the kernels' gate (the Hopper
+kernels have no backward); ``prefill`` and ``decode`` run under
+``torch.no_grad``.
 
 ``params_from_numpy`` carries the reference's ``Model.init_params`` pytree
 (as numpy arrays) into the port's state dict, so both packages can run the
@@ -171,23 +180,28 @@ class Model(nn.Module):
             logits = c * torch.tanh(logits / c)
         return logits
 
-    def _encode(self, frames):
+    def _encode(self, frames, mode: str = "encode"):
         """Whisper's encoder over precomputed (stubbed) frame embeddings
         [B, Se, D]: sinusoidal positions added in the frames' dtype, the
-        bidirectional layers, then ``enc_norm``."""
+        bidirectional layers, then ``enc_norm``. The layers read ``mode``
+        from their aux: "encode" (serve) goes through the kernels' gate,
+        "train" through ``attention_full`` under autograd, as the
+        reference's encoder always does."""
         cfg = self.cfg
         b, se = frames.shape[:2]
         x = frames + _sinusoidal(se, cfg.d_model, frames.dtype,
                                  frames.device)
-        aux = {"mode": "encode", "backend": self.backend,
+        aux = {"mode": mode, "backend": self.backend,
                "q_pos": torch.arange(se, dtype=I32, device=frames.device
                                      )[None].expand(b, se)}
-        x, _ = apply_stack(cfg, self.enc_stack, self.encoder, x, aux)
+        x, _, _ = apply_stack(cfg, self.enc_stack, self.encoder, x, aux)
         return L.rms_norm(x, self.enc_norm, cfg.norm_eps)
 
     def _aux_for(self, batch, mode, cache=None, tokens=None):
+        """The blocks' context for ``mode`` (in mode "train" the blocks
+        run the plain versions and do not read ``backend``)."""
         aux: Dict[str, Any] = {"mode": mode, "backend": self.backend}
-        if mode == "prefill":
+        if mode in ("train", "prefill"):
             t = tokens if tokens is not None else batch["tokens"]
             bsz, s = t.shape
             aux["q_pos"] = torch.arange(s, dtype=I32,
@@ -200,11 +214,43 @@ class Model(nn.Module):
         # the memories of cross-attention; in decode the layers read their
         # cached xk / xv, so the VLM needs no image there
         if self.cfg.family == "encdec":
-            aux["enc_out"] = (self._encode(batch["frames"])
-                              if mode == "prefill" else cache["enc_out"])
-        if self.cfg.family == "vlm" and mode == "prefill":
+            aux["enc_out"] = (cache["enc_out"] if mode == "decode" else
+                              self._encode(batch["frames"],
+                                           "train" if mode == "train"
+                                           else "encode"))
+        if self.cfg.family == "vlm" and mode != "decode":
             aux["img"] = batch["image_embeds"]
         return aux
+
+    # -- train -------------------------------------------------------------
+
+    def loss(self, batch):
+        """Next-token cross-entropy of ``batch["tokens"]`` [B, S] (and
+        ``frames`` / ``image_embeds`` for encdec / vlm) with a z-loss and
+        the MoE aux loss, as the reference's ``Model.loss``: targets shifted
+        left with the last position masked, ``logsumexp`` in float32,
+        ``zloss = 1e-4 · Σ(lse·mask)² / Σmask``, total = ce + zloss +
+        ``router_aux_coef`` · aux_loss. Returns (total, {"loss", "ce",
+        "aux_loss", "zloss"}), all float32 scalars."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        aux = self._aux_for(batch, "train")
+        x = self._embed(tokens)
+        x, _, aux_loss = apply_stack(cfg, self.stack, self.layers, x, aux)
+        logits = self._head(x)
+        tok = tokens.long()
+        targets = torch.cat([tok[:, 1:], torch.zeros_like(tok[:, :1])], 1)
+        mask = torch.cat([torch.ones_like(tok[:, 1:], dtype=F32),
+                          torch.zeros_like(tok[:, :1], dtype=F32)], 1)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+        nll = (lse - tgt_logit) * mask
+        denom = torch.clamp_min(torch.sum(mask), 1.0)
+        ce = torch.sum(nll) / denom
+        zloss = 1e-4 * torch.sum((lse * mask) ** 2) / denom
+        total = ce + zloss + cfg.router_aux_coef * aux_loss
+        return total, {"loss": total, "ce": ce, "aux_loss": aux_loss,
+                       "zloss": zloss}
 
     # -- serve -------------------------------------------------------------
 
@@ -215,8 +261,8 @@ class Model(nn.Module):
         tokens = batch["tokens"]
         aux = self._aux_for(batch, "prefill")
         x = self._embed(tokens)
-        x, new_stack = apply_stack(self.cfg, self.stack, self.layers, x, aux,
-                                   cache["stack"])
+        x, new_stack, _ = apply_stack(self.cfg, self.stack, self.layers, x,
+                                      aux, cache["stack"])
         logits = self._head(x[:, -1:])
         s = tokens.shape[1]
         w = cache["kv_pos"].shape[1]
@@ -263,8 +309,8 @@ class Model(nn.Module):
                                         device=slot.device).view(b, -1)
         aux["lengths"] = torch.clamp_max(cache["len"] + 1, w).to(I32)
         x = self._embed(tokens)
-        x, new_stack = apply_stack(cfg, self.stack, self.layers, x, aux,
-                                   cache["stack"])
+        x, new_stack, _ = apply_stack(cfg, self.stack, self.layers, x, aux,
+                                      cache["stack"])
         logits = self._head(x)
         new_cache = dict(cache)
         new_cache.update({

@@ -6,7 +6,9 @@ RG-LRU kernel (``kernels/rg_lru``: the Hopper kernel on the card, its
 plain sequential loop on the CPU) where the reference takes an
 associative scan; a one-token decode step is one multiply-add in plain
 torch. Decode carries (h, conv-tap) state; all recurrence math is float32.
-The cache is updated in place.
+The cache is updated in place. Training (no cache: the zero-padded conv)
+runs the scan's plain loop (``backend="ref"``) under autograd, since the
+kernel has no backward.
 """
 from __future__ import annotations
 

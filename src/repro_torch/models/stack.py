@@ -8,7 +8,8 @@ stack ("enc",) × 4). The reference stacks
 each pattern position's parameters on a leading ``n_groups`` axis, runs
 the groups as one ``lax.scan`` and the tail's blocks after it; here the
 layers are ``nn.Module``s in an ``nn.ModuleList`` (groups first, then the
-tail) and a plain Python loop takes the place of the scan. The cache keeps
+tail) and a plain Python loop takes the place of the scan (and
+``torch.utils.checkpoint`` that of ``jax.checkpoint`` in training). The cache keeps
 the reference's layout — each pattern position's cache leaves stacked on
 a leading layer axis under ``{"scan": {f"{pos}_{kind}": {...}}, "tail":
 {f"{i}_{kind}": {...}}}`` — and layer ``l`` reads and updates (in place)
@@ -20,6 +21,7 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,12 +88,43 @@ def init_stack_cache(cfg, stack: StackDef, batch: int, shape_cfg,
 
 
 def apply_stack(cfg, stack: StackDef, layers, x, aux, cache=None):
-    """Run the layers in order. Returns (x, cache); the cache leaves are
-    updated in place. ``cache=None`` runs a stack that keeps none (the
-    encoder's)."""
-    for layer, (sec, key, g) in zip(layers, layer_slots(stack)):
-        c = None if cache is None else cache[sec].get(key)
-        if c is not None and g is not None:
-            c = {k: a[g] for k, a in c.items()}
-        x, _ = layer(x, aux, c)
-    return x, cache
+    """Run the layers in order. Returns (x, cache, aux_loss): the cache
+    leaves are updated in place (``cache=None`` runs a stack that keeps
+    none: the encoder's, or any stack in training), and ``aux_loss`` is
+    the float32 sum of the blocks' aux losses, group by group and then
+    the tail, as the reference's scan carries it.
+
+    With ``cfg.remat``, in mode "train" under grad mode, each group runs
+    under ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: its
+    activations are recomputed in the backward pass, the counterpart of
+    the reference's ``jax.checkpoint(nothing_saveable)`` over a group
+    (the tail runs without it, as there)."""
+    slots = layer_slots(stack)
+    per_group = len(stack.pattern)
+    remat = cfg.remat and aux["mode"] == "train" and torch.is_grad_enabled()
+
+    def run(x, lo, hi):
+        al = 0.0
+        for layer, (sec, key, g) in zip(layers[lo:hi], slots[lo:hi]):
+            c = None if cache is None else cache[sec].get(key)
+            if c is not None and g is not None:
+                c = {k: a[g] for k, a in c.items()}
+            x, _, a = layer(x, aux, c)
+            al = al + a
+        return x, al
+
+    total = 0.0
+    n_scan = stack.n_groups * per_group
+    for lo in range(0, n_scan, per_group):
+        if remat:
+            x, al = checkpoint(run, x, lo, lo + per_group,
+                               use_reentrant=False)
+        else:
+            x, al = run(x, lo, lo + per_group)
+        total = total + al
+    for lo in range(n_scan, len(slots)):
+        x, al = run(x, lo, lo + 1)
+        total = total + al
+    if not torch.is_tensor(total):     # no block had an aux loss
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cache, total

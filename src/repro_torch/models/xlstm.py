@@ -11,7 +11,8 @@ sLSTM has hidden-to-gate recurrence, so it is inherently sequential: a
 Python loop over time with exponential-gating stabilizer state. It has no
 Pallas kernel in the reference; each step is ~20 small torch operations.
 
-Caches are updated in place.
+Caches are updated in place. Training (no cache) runs the plain
+chunkwise mLSTM (``backend="ref"``) and the sLSTM loop under autograd.
 """
 from __future__ import annotations
 

@@ -19,8 +19,9 @@ The logical-axis half (``build_rules``, ``spec_for``, ``Logical``,
 ``sharding_ctx``) is pure Python, equal to the reference's on every mesh
 shape; ``spec_for`` returns ``P``, a tuple that reads like JAX's
 ``PartitionSpec``. ``shard_act`` is the identity outside a context and
-on a mesh of one device; the port's models call none (ROADMAP A9's
-training item ports activation and parameter sharding).
+on a mesh of one device; the port's models call none besides the MoE
+dispatch (ROADMAP A9's dry-run item ports activation and parameter
+sharding; training runs on one device).
 """
 from __future__ import annotations
 
@@ -253,12 +254,12 @@ def shard_act(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """Constrain an activation's placement by logical axis names: the
     identity without an ambient context or on a mesh of one device entry
     (``mesh.size``, the total). On a larger mesh it raises: activation
-    sharding is ROADMAP A9's training item."""
+    sharding is ROADMAP A9's dry-run item (training runs on one device)."""
     if _CTX.mesh is None or _CTX.mesh.size <= 1:
         return x
     raise NotImplementedError(
         "shard_act on a mesh of more than one device is not ported yet "
-        "(ROADMAP A9, training: activation and parameter sharding)")
+        "(ROADMAP A9, the dry run: activation and parameter sharding)")
 
 
 # ---------------------------------------------------------------------------

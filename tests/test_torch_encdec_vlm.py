@@ -173,7 +173,7 @@ def test_enc_layer_matches_reference(dtype, qkv_bias):
                                    None)
     layer = _module(TB.EncLayer, tc, p)
     aux = {"mode": "encode", "q_pos": torch.from_numpy(pos.copy())}
-    ours, cache = layer(to_torch(x), aux, None)
+    ours, cache, _ = layer(to_torch(x), aux, None)
     assert cache is None
     _close(ours, ref, dtype, "encoder layer")
 

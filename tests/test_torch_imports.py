@@ -41,7 +41,11 @@ def test_every_module_is_listed():
                  "repro_torch.models.moe",
                  "repro_torch.configs.olmoe_1b_7b",
                  "repro_torch.configs.whisper_tiny",
-                 "repro_torch.configs.llama_3_2_vision_11b"):
+                 "repro_torch.configs.llama_3_2_vision_11b",
+                 "repro_torch.optim.optimizer",
+                 "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint.checkpointing",
+                 "repro_torch.runtime.fault_tolerance"):
         assert must in MODULES, must
 
 
@@ -56,13 +60,15 @@ def test_module_imports_first_in_a_fresh_process(ctx, module):
 
 
 #: run in a fresh child: import the modules of MODULES_ (a tuple of names),
-#: then exit 1 if anything of JAX or of the reference package was imported
+#: then exit 1 if anything of JAX, of the reference package or of
+#: ``ml_dtypes`` was imported (the reference's checkpoints need it for
+#: bfloat16; the port reads them through torch's views)
 _NO_REFERENCE = """
 import importlib, sys
 for m in MODULES_:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 if bad:
     print("imported:", bad[:8], file=sys.stderr)
     sys.exit(1)
@@ -95,4 +101,17 @@ def test_model_modules_import_neither_jax_nor_the_reference(ctx):
         + ["repro_torch.serving.engine"])
     assert code == 0, \
         "importing repro_torch.models / configs / serving.engine pulled in " \
-        f"jax or repro (see the captured stderr), exit code {code}"
+        f"jax, repro or ml_dtypes (see the captured stderr), exit code {code}"
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.optim.optimizer", "repro_torch.data.pipeline",
+    "repro_torch.checkpoint.checkpointing",
+    "repro_torch.runtime.fault_tolerance"])
+def test_training_modules_import_neither_jax_nor_the_reference(ctx, module):
+    """Each training module first in a fresh process pulls in nothing of
+    JAX, of the reference, or ``ml_dtypes``."""
+    code = _imports_no_reference(ctx, (module,))
+    assert code == 0, \
+        f"importing {module} pulled in jax, repro or ml_dtypes (see the " \
+        f"captured stderr), exit code {code}"

@@ -424,10 +424,10 @@ def test_encdec_and_vlm_models_kernels_match_plain_on_card(cuda_device, arch,
     prompts = torch.randint(0, cfg.vocab_size, (2, 300), generator=gen,
                             dtype=torch.int32, device=cuda_device)
     extra = CS.memory_inputs(cfg, 2, cuda_device)
-    before = {k: v.launches for k, v in CS.RECURRENT_KERNELS.items()}
+    before = CS.launches_of(CS.RECURRENT_KERNELS)
     ko, toks, _, _, kcache = CS._generate(kern, prompts, 304, 4, extra=extra)
-    launched = {k: v.launches - before[k]
-                for k, v in CS.RECURRENT_KERNELS.items()}
+    launched = {k: n - before[k]
+                for k, n in CS.launches_of(CS.RECURRENT_KERNELS).items()}
     po, _, _, _, pcache = CS._generate(plain, prompts, 304, 4, forced=toks,
                                        extra=extra)
     assert launched == {"rg_lru": 0, "mlstm": 0,
