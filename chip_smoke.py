@@ -174,6 +174,26 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      uninterrupted run's loss within rel 1e-6 (deterministic algorithms
      on for this part only; ``CUBLAS_WORKSPACE_CONFIG`` is set before
      CUDA starts);
+ 15e. dryrun — the dry run (``repro_torch.launch.dryrun``): a. production
+     cells on the meta meshes of 256 and 512 entries, in a child process
+     started after the build (host only): every arch's decode_32k and
+     long_500k on both meshes, Whisper-tiny's train_4k and Qwen3-1.7B's
+     prefill_32k; the skips equal ``shape_applicable``'s, every other
+     cell is ok, with its per-device GB, ``fits_80gb``, dominant term and
+     roofline fraction; b. two cells of Qwen3-1.7B at full width on a
+     (1, 1) mesh, each reported on meta and run on the card: train at 4 x
+     256, one microbatch, bf16 (no kernel): the dot FLOPs counted on the
+     card (``hlo_analysis.OpCounter``) equal the report's, the argument
+     bytes on the card equal the report's, the card's peak over the step
+     (``max_memory_allocated``, the bytes resident besides the step's
+     arguments taken off) within ``DRYRUN_MEM_BAND`` of the report's
+     argument + temp bytes, and the step's time (CUDA events) no less
+     than the roofline's max(compute, memory); decode in float32 at 32,768
+     positions with the batch cut to 4 over ``init_cache(filled=True)``
+     (its K/V drawn from a seed) through the paged decode kernel, 28
+     launches (as many as the report counted on meta), its logits against
+     the plain version at the dense serve tolerance, and the bytes of its
+     inputs on the card equal to the report's argument bytes;
  16. kernels  — one JSON object per kernel: launches on its paths, max
      error against the plain version, ms and device ms, the bound and the
      library call's ms and device ms; every Pallas kernel of the
@@ -211,7 +231,9 @@ from repro_torch import paper_figures as PF  # noqa: E402
 from repro_torch.api import registry as REG  # noqa: E402
 from repro_torch.checkpoint.checkpointing import (  # noqa: E402
     CheckpointManager)
-from repro_torch.configs.base import OptimizerConfig, get_config  # noqa: E402
+from repro_torch.configs.base import (ARCH_IDS, SHAPES,  # noqa: E402
+                                      OptimizerConfig, ShapeConfig,
+                                      get_config, shape_applicable)
 from repro_torch.core import baselines as BL  # noqa: E402
 from repro_torch.core import tracegen as TG  # noqa: E402
 from repro_torch.core import workloads as WL  # noqa: E402
@@ -231,6 +253,8 @@ from repro_torch.kernels.mlstm import ops as MLSTM  # noqa: E402
 from repro_torch.kernels.rg_lru import ops as RGLRU  # noqa: E402
 from repro_torch.kernels.wavefront_scan import ops as WSCAN  # noqa: E402
 from repro_torch.kernels.wavefront_scan.ref import QueueCarry  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
+from repro_torch.launch import hlo_analysis as HA  # noqa: E402
 from repro_torch.launch import make_local_mesh  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -2101,31 +2125,19 @@ def _paper_serving(device: str, out) -> None:
         raise
 
 
-def start_paper_serving(dev) -> tuple:
-    """Start ``_paper_serving`` in a spawned child process; returns (the
-    process, its queue) for ``phase_serving_sim``."""
+def start_child(target, *args) -> tuple:
+    """Start ``target(*args, out)`` in a spawned child process; returns
+    (the process, its queue ``out``) for ``_child_result``."""
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
-    proc = ctx.Process(target=_paper_serving, args=(str(dev), out),
-                       daemon=True)
+    proc = ctx.Process(target=target, args=(*args, out), daemon=True)
     proc.start()
     return proc, out
 
 
-def _paper_serving_result(child) -> dict:
-    """Wait for the child's result; fails if it raised or died."""
-    proc, out = child
-    while True:
-        try:
-            res = out.get(timeout=5)
-            break
-        except queue.Empty:
-            check(proc.is_alive() or not out.empty(),
-                  f"PAPER_SERVING's process ended ({proc.exitcode}) with "
-                  "no result")
-    proc.join(60)
-    check("error" not in res, f"PAPER_SERVING failed:\n{res.get('error')}")
-    return res
+def start_paper_serving(dev) -> tuple:
+    """``_paper_serving`` in a child process, for ``phase_serving_sim``."""
+    return start_child(_paper_serving, str(dev))
 
 
 def phase_serving_sim(child=None) -> dict:
@@ -2139,7 +2151,7 @@ def phase_serving_sim(child=None) -> dict:
     card = card_line()
     exp = REG.PAPER_SERVING.with_(device=DEV)
     t0 = time.perf_counter()
-    paper = _paper_serving_result(child or start_paper_serving(DEV))
+    paper = _child_result(child or start_paper_serving(DEV), "PAPER_SERVING")
     waited = time.perf_counter() - t0
     wall = paper["wall_s"]
     check(not paper["launched"],
@@ -3263,6 +3275,242 @@ def phase_train(dev=DEV) -> dict:
     return dict(parts=seconds)
 
 
+# ---------------------------------------------------------------------------
+# the dry run: production cells on meta meshes, two cells on the card
+# ---------------------------------------------------------------------------
+
+#: part a, in a child process: (arch, shape, multi_pod)
+DRYRUN_CELLS = ([(a, s, mp) for a in ARCH_IDS
+                 for s in ("decode_32k", "long_500k") for mp in (False, True)]
+                + [("whisper_tiny", "train_4k", False),
+                   ("qwen3_1_7b", "prefill_32k", False)])
+#: part b: Qwen3-1.7B's train step at 4 x 256 and a decode token at 32,768
+#: positions with the batch cut from 128 to 4, each on a (1, 1) mesh
+DRYRUN_TRAIN = ShapeConfig("train_card", 256, 4, "train")
+DRYRUN_DECODE = ShapeConfig("decode_32k", 32768, 4, "decode")
+#: the card's peak over the train step against the report's argument +
+#: temp bytes: within this share of the report
+DRYRUN_MEM_BAND = 0.10
+
+
+def _dryrun_cells(out) -> None:
+    """In a child process: every cell of ``DRYRUN_CELLS`` through
+    ``dryrun.run_cell`` on the meta meshes; puts each cell's summary on
+    ``out`` (or the error, with its traceback)."""
+    sys.stdout = sys.stderr     # the parent's stdout carries the JSON lines
+    try:
+        cells = []
+        for arch, shape, mp in DRYRUN_CELLS:
+            r = DR.run_cell(arch, shape, mp)
+            row = dict(arch=arch, shape=shape, mesh=r["mesh"],
+                       status=r["status"])
+            if r["status"] == "ok":
+                m, ro = r["memory"], r["roofline"]
+                row.update(trace_s=r["trace_s"], n_devices=r["n_devices"],
+                           per_device_gb=m["per_device_live_bytes"] / 1e9,
+                           fits_80gb=m["fits_80gb"],
+                           dominant=ro["dominant"],
+                           roofline_fraction=ro["roofline_fraction"])
+            else:
+                row["reason"] = r["reason"]
+            cells.append(row)
+        out.put(dict(cells=cells))
+    except BaseException:
+        import traceback
+        out.put(dict(error=traceback.format_exc()))
+        raise
+
+
+def start_dryrun_cells() -> tuple:
+    """``_dryrun_cells`` in a child process, for ``phase_dryrun``."""
+    return start_child(_dryrun_cells)
+
+
+def _child_result(child, what: str) -> dict:
+    """Wait for a child's result; fails if it raised or died."""
+    proc, out = child
+    while True:
+        try:
+            res = out.get(timeout=5)
+            break
+        except queue.Empty:
+            check(proc.is_alive() or not out.empty(),
+                  f"{what}'s process ended ({proc.exitcode}) with no result")
+    proc.join(60)
+    check("error" not in res, f"{what} failed:\n{res.get('error')}")
+    return res
+
+
+def _meta_report(cfg, shape) -> dict:
+    """The dry run's report of ``cfg`` at ``shape`` on a (1, 1) mesh of
+    meta devices."""
+    return DR.run_cell(cfg.name, shape.name, False, cfg=cfg, shape=shape,
+                       mesh=make_local_mesh(1, 1, device="meta"))
+
+
+def _tree_bytes(*trees) -> int:
+    return sum(HA.nbytes(t) for tree in trees for t in DR.leaves(tree))
+
+
+def _dryrun_train(dev) -> dict:
+    """Part b, train: the report's figures against the card's step."""
+    cfg, shape = get_config("qwen3_1_7b"), DRYRUN_TRAIN
+    rep = _meta_report(cfg, shape)
+    model = build_model(cfg, dev)
+    params = {k: v.detach() for k, v in model.init_params(
+        torch.Generator(dev).manual_seed(0)).items()}
+    opt = init_opt_state(params, DR._opt_cfg(cfg))
+    gen = torch.Generator(dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (
+        shape.global_batch, shape.seq_len), generator=gen, device=dev,
+        dtype=torch.int32)}
+    step = DR.cell_step(model, shape)
+    args_b = _tree_bytes(params, opt, batch)
+    check(args_b == rep["memory"]["argument_bytes"],
+          f"train: {args_b} argument bytes on the card, the report has "
+          f"{rep['memory']['argument_bytes']}")
+    reset_launches()
+    out = step(params, opt, batch)            # cuBLAS and allocator warm-up
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with HA.OpCounter("cuda") as counter:
+        out = step(params, opt, batch)
+    torch.cuda.synchronize()
+    card_temp = torch.cuda.max_memory_allocated() - base
+    loss = float(out[2]["loss"])
+    del out
+    ms = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(params, opt, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        del out
+    launches = launches_of()
+    check(sum(launches.values()) == 0, f"train cell launched {launches}")
+    check(np.isfinite(loss), f"train cell loss {loss}")
+    dot = counter.summary.dot_flops
+    want = rep["hlo"]["dot_flops_per_dev"]
+    check(dot == want, f"train: {dot} dot FLOPs on the card, the report "
+          f"has {want}")
+    rep_live = rep["memory"]["per_device_live_bytes"]
+    card_live = args_b + card_temp
+    share = abs(card_live - rep_live) / rep_live
+    check(share <= DRYRUN_MEM_BAND,
+          f"train: card peak {card_live} against the report's {rep_live} "
+          f"({share:.3f} off, band {DRYRUN_MEM_BAND})")
+    ro = rep["roofline"]
+    bound_ms = max(ro["compute_s"], ro["memory_s"]) * 1e3
+    check(min(ms) >= bound_ms, f"train step {min(ms)} ms under the "
+          f"roofline's {bound_ms} ms")
+    return dict(arch=cfg.name, seq_len=shape.seq_len,
+                batch=shape.global_batch, dtype=cfg.dtype,
+                argument_bytes=args_b, report_temp_bytes=rep["memory"][
+                    "temp_bytes"], card_temp_bytes=card_temp,
+                report_live_bytes=rep_live, card_live_bytes=card_live,
+                live_share_off=share, dot_flops=dot,
+                card_ops=counter.summary.n_ops, meta_ops=rep["hlo"]["n_ops"],
+                card_mem_bytes=counter.summary.mem_bytes,
+                report_mem_bytes=rep["hlo"]["mem_bytes_per_dev"],
+                step_ms=ms, roofline=ro, bound_ms=bound_ms,
+                trace_s=rep["trace_s"], loss=loss)
+
+
+def _dryrun_decode(dev) -> dict:
+    """Part b, decode: one token over the filled cache through the paged
+    decode kernel, against the plain version, in float32."""
+    cfg = dataclasses.replace(get_config("qwen3_1_7b"), dtype="float32")
+    shape = DRYRUN_DECODE
+    rep = _meta_report(cfg, shape)
+    model = build_model(cfg, dev)
+    model.init_params(torch.Generator(dev).manual_seed(0))
+    params = dict(model.named_parameters())
+    gen = torch.Generator(dev).manual_seed(2)
+    cache = model.init_cache(shape.global_batch, shape, filled=True)
+    for leaf in DR.leaves(cache["stack"]):
+        leaf.normal_(generator=gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (
+        shape.global_batch, 1), generator=gen, device=dev,
+        dtype=torch.int32)}
+    args_b = _tree_bytes(params, batch, cache)
+    check(args_b == rep["memory"]["argument_bytes"],
+          f"decode: {args_b} input bytes on the card, the report has "
+          f"{rep['memory']['argument_bytes']}")
+    step = DR.cell_step(model, shape)
+    torch.cuda.synchronize()
+    reset_launches()
+    logits, _ = step(params, batch, cache)
+    torch.cuda.synchronize()
+    launches = launches_of()
+    want = rep["hlo"]["kernels"].get("paged_decode_attention", 0)
+    check(launches["paged_decode_attention"] == want == cfg.num_layers
+          and sum(launches.values()) == want,
+          f"decode: launches {launches}, the report counted {want}")
+    # the token's K/V land in the same ring slot in every run, before any
+    # layer reads the ring: each run sees its own, as from a fresh cache
+    ms = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(params, batch, cache)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    model.backend = "ref"
+    try:
+        plain, _ = step(params, batch, cache)
+    finally:
+        model.backend = "auto"
+    tol = SERVE_F32_TOL["dense"]
+    a, b = logits.float(), plain.float()
+    share = float(((a - b).abs() / (tol * (1 + b.abs()))).max())
+    check(bool(torch.isfinite(a).all()) and share <= 1.0,
+          f"decode: logits {share} of the tolerance off the plain version")
+    return dict(arch=cfg.name, positions=shape.seq_len,
+                batch=shape.global_batch, dtype=cfg.dtype,
+                argument_bytes=args_b, cache_bytes=_tree_bytes(cache),
+                launches=launches, max_abs_err=float((a - b).abs().max()),
+                tol_share=share, step_ms=ms, roofline=rep["roofline"],
+                trace_s=rep["trace_s"], max_memory_allocated_gb=(
+                    torch.cuda.max_memory_allocated() / 1e9))
+
+
+def phase_dryrun(child=None, dev=DEV) -> dict:
+    """a. the production cells of ``DRYRUN_CELLS`` from the child process
+    ``child`` (``start_dryrun_cells``; started here if None): skips as
+    ``shape_applicable`` says, the others ok; b. the two card cells.
+    Returns the cells, both card parts and the decode part's launches."""
+    if child is None:
+        child = start_dryrun_cells()
+    out = {}
+    for part, fn in (("train", _dryrun_train), ("decode", _dryrun_decode)):
+        t0 = time.perf_counter()
+        out[part] = fn(dev)
+        emit(f"dryrun.{part}", seconds=time.perf_counter() - t0, **out[part])
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cells = _child_result(child, "the dry run's cells")["cells"]
+    for c in cells:
+        ok, reason = shape_applicable(get_config(c["arch"]),
+                                      SHAPES[c["shape"]])
+        check(c["status"] == ("ok" if ok else "skipped")
+              and c.get("reason", "") == reason,
+              f"dry run {c['arch']} {c['shape']} {c['mesh']}: {c['status']}"
+              f" {c.get('reason', '')}")
+    emit("dryrun.cells", wait_s=time.perf_counter() - t0, cells=cells)
+    return dict(train=out["train"], decode=out["decode"], cells=len(cells),
+                skipped=sum(c["status"] == "skipped" for c in cells),
+                launches=out["decode"]["launches"])
+
+
 def _layer_kinds(cfg) -> list:
     """Block kind of each of ``cfg``'s layers, in execution order."""
     from repro_torch.models.model import _stackdef
@@ -3279,10 +3527,12 @@ def bound(meas: dict, ops_per_s: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def run_phases(paper) -> dict:
+def run_phases(paper, dry) -> dict:
     """Every phase after the build, in order, one JSON line each; returns
     their results. ``paper`` is PAPER_SERVING's child process
-    (``start_paper_serving``), which ``phase_serving_sim`` reads."""
+    (``start_paper_serving``), which ``phase_serving_sim`` reads, and
+    ``dry`` the dry run's (``start_dryrun_cells``), which
+    ``phase_dryrun`` reads."""
     results = {}
     for phase, fn in (("wave_queue", phase_wave_queue),
                       ("wave_cache", phase_wave_cache),
@@ -3303,7 +3553,8 @@ def run_phases(paper) -> dict:
                       ("moe_serve", phase_moe_serve),
                       ("encdec_serve", phase_encdec_serve),
                       ("vlm_serve", phase_vlm_serve),
-                      ("train", phase_train)):
+                      ("train", phase_train),
+                      ("dryrun", lambda: phase_dryrun(dry))):
         t0 = time.perf_counter()
         results[phase] = fn()
         emit(phase, seconds=time.perf_counter() - t0, **results[phase])
@@ -3331,21 +3582,23 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
                 for k, v in built.items()})
 
-    # the card sits idle through PAPER_SERVING (host numpy, minutes): it
-    # runs in a child process beside the phases before its own
-    paper = start_paper_serving(DEV)
+    # the card sits idle through PAPER_SERVING (host numpy, minutes) and
+    # the dry run's meta cells (host only): each runs in a child process
+    # beside the phases before its own
+    children = (start_paper_serving(DEV), start_dryrun_cells())
     try:
-        results = run_phases(paper)
+        results = run_phases(*children)
     finally:
-        if paper[0].is_alive():
-            paper[0].terminate()
-        paper[0].join()
+        for proc, _ in children:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
 
     # launches of each kernel on its main paths: the wavefront kernels in
     # HAMMER2K x 4 policies, the serving kernels in the full-width A/B, the
     # attention kernels also in the hybrid, dense, moe, encdec and vlm runs,
-    # rg_lru in the hybrid run, mlstm in the ssm run (each run counted from
-    # 0)
+    # rg_lru in the hybrid run, mlstm in the ssm run, decode in the dry
+    # run's card cell (each run counted from 0)
     paths = {"HAMMER2K": results["scale"]["HAMMER2K"]["launches"],
              "STRESS": results["api"]["stress"]["launches"],
              "fig7_quick": {"event_loop": results["fig7"]["launches"]},
@@ -3358,7 +3611,8 @@ def main() -> int:
              "dense_serve": results["dense_serve"]["launches"],
              "moe_serve": results["moe_serve"]["launches"],
              "encdec_serve": results["encdec_serve"]["launches"],
-             "vlm_serve": results["vlm_serve"]["launches"]}
+             "vlm_serve": results["vlm_serve"]["launches"],
+             "dryrun": results["dryrun"]["launches"]}
     measured = {"wave_queue": (results["wave_queue"], F32_OPS_PER_S),
                 "wave_cache": (results["wave_cache"], F32_OPS_PER_S),
                 "medic_gather": (results["medic_gather"], BF16_OPS_PER_S),

@@ -3,8 +3,11 @@
 ``ModelConfig`` keeps every field of the reference, so a config built
 here describes the same architecture as the reference's, field for field,
 and ``reduced`` cuts it to the same small size. ``get_config`` returns
-each of the reference's ten archs. ``OptimizerConfig``, ``TrainConfig``,
-``MeshConfig`` and ``MedicConfig`` are the reference's, field for field.
+each of the reference's ten archs. The shapes registry (``SHAPES``:
+train_4k / prefill_32k / decode_32k / long_500k) and ``shape_applicable``
+are the reference's, skip reasons word for word. ``OptimizerConfig``,
+``TrainConfig``, ``MeshConfig`` and ``MedicConfig`` are the reference's,
+field for field.
 """
 from __future__ import annotations
 
@@ -91,9 +94,26 @@ class ModelConfig:
 
     @property
     def num_params(self) -> int:
-        """Parameter count of the port's model."""
-        from repro_torch.models.model import count_params
-        return count_params(self)
+        """Analytic parameter count (the model's parameters, counted on
+        the meta device; used for the roofline)."""
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self)
+
+    @property
+    def num_active_params(self) -> int:
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self, active_only=True)
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Can this arch serve 500k-token contexts with bounded state?"""
+        if self.family in ("hybrid", "ssm"):
+            return True
+        return self.sliding_window is not None
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # every assigned arch has an autoregressive decoder
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's sizes)."""
@@ -127,6 +147,22 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs; else the documented skip reason."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, ("pure full-attention arch: 500k-token decode state is "
+                       "unbounded; skipped per brief (see DESIGN.md §5)")
+    return True, ""
 
 
 # ---------------------------------------------------------------------------

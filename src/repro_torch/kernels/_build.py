@@ -11,6 +11,12 @@ made: the wrapper adds one after each successful launch and nowhere
 else, so a run can show that it went through the kernel. No kernel has a
 backward: the wrappers that take model activations refuse an input that
 requires grad (``refuse_grad``).
+
+On ``meta`` tensors (the dry run, ``repro_torch.launch.dryrun``) the
+model's kernels take their card route without a card: ``meta_launch``
+returns the kernel's outputs as shapes and hands the launch, with the
+products it computes, to the counters in ``META_SINKS``, which take it
+as one operation, as a custom call is one instruction of XLA's program.
 """
 from __future__ import annotations
 
@@ -147,6 +153,28 @@ def resolve_backend(kind: str, backend: str, device) -> str:
         raise ValueError(f"{kind}_backend='cuda' needs CUDA tensors; the "
                          "CUDA kernel has no CPU form (use 'ref' or 'auto')")
     return backend
+
+
+#: callables ``(name, inputs, outputs, flops)`` that count the launches
+#: made on meta tensors (``launch.hlo_analysis.OpCounter`` while active)
+META_SINKS: list = []
+
+
+def on_meta(backend: str, device) -> bool:
+    """Whether a wrapper called with ``backend`` on ``device`` takes the
+    card's route on meta tensors: ``"auto"`` on the meta device."""
+    return backend == "auto" and torch.device(device).type == "meta"
+
+
+def meta_launch(name: str, inputs, outputs, flops: float):
+    """The card's launch of kernel ``name`` on meta tensors: ``outputs``
+    (meta tensors of the kernel's shapes) are returned as they are, and
+    every sink of ``META_SINKS`` is told of the launch: its ``inputs``
+    read once, its ``outputs`` written once and its ``flops`` of matrix
+    products. Nothing is computed and no launch is counted."""
+    for sink in META_SINKS:
+        sink(name, inputs, outputs, flops)
+    return outputs
 
 
 def refuse_grad(kernel: str, *tensors) -> None:

@@ -133,7 +133,17 @@ def paged_decode_attention(q, k_pool, v_pool, block_tbl, lengths, *,
                            backend: str = "auto"):
     """q: [B, Hkv, G, D] one-token queries; pools [N, page, Hkv, D];
     block_tbl i32[B, P] (entries < 0 = non-resident, masked); lengths
-    i32[B]. Returns [B, Hkv, G, D] in q's dtype."""
+    i32[B]. Returns [B, Hkv, G, D] in q's dtype.
+
+    On meta tensors ``lengths`` holds no values: the launch counts every
+    slot of the table (a filled cache's case), 4 · D products a slot for
+    each query head."""
+    if _build.on_meta(backend, q.device):
+        b, hkv, g, d = q.shape
+        slots = block_tbl.shape[1] * k_pool.shape[1]
+        return _build.meta_launch(
+            "paged_decode_attention", (q, k_pool, v_pool, block_tbl, lengths),
+            torch.empty_like(q), 4 * b * hkv * g * d * slots)
     if _build.resolve_backend("decode_attention", backend, q.device) == "ref":
         return _ref.paged_decode_attention_ref(q, k_pool, v_pool, block_tbl,
                                                lengths)

@@ -59,9 +59,30 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
     return out
 
 
+def live_pairs(s: int, skv: int, causal: bool, window=None) -> int:
+    """(query, key) pairs the mask leaves live: key j <= query i when
+    causal, and i - j < window with a window."""
+    if not causal:
+        return s * (skv if window is None else min(skv, window))
+    w = s if window is None else min(window, s)
+    # sum over i of min(i + 1, w)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def flops(q, k, causal: bool = True, window=None) -> int:
+    """Products of one call: q.k and p.v over the live pairs, 2 · D
+    each, for every query head."""
+    b, s, h, d = q.shape
+    return 4 * b * h * d * live_pairs(s, k.shape[1], causal, window)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     backend: str = "auto"):
     """q [B, S, H, D], k/v [B, Skv, Hkv, D] -> [B, S, H, D] (q's dtype)."""
+    if _build.on_meta(backend, q.device):
+        return _build.meta_launch("flash_attention", (q, k, v),
+                                  torch.empty_like(q),
+                                  flops(q, k, causal, window))
     if _build.resolve_backend("flash_attention", backend, q.device) == "ref":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)

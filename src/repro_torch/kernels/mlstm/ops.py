@@ -89,9 +89,30 @@ def mlstm_cuda(q, k, v, li, lf, state=None):
     return out, (c1, n1, m1)
 
 
+def flops(b: int, s: int, h: int, dk: int, dv: int,
+          chunk: int = _ref.CHUNK) -> int:
+    """Products of one call, chunk by chunk of L positions: q.k (L·L·Dk),
+    W.v (L·L·Dv), q.C (L·Dk·Dv), q.n (L·Dk), k^T.v into C (L·Dk·Dv) and
+    the sum into n (L·Dk), 2 each, for every head."""
+    total = 0
+    for c0 in range(0, s, chunk):
+        n = min(chunk, s - c0)
+        total += n * n * (dk + dv) + 2 * n * dk * dv + 2 * n * dk
+    return 2 * b * h * total
+
+
 def mlstm(q, k, v, li, lf, state=None, *, backend: str = "auto"):
     """Chunkwise mLSTM from ``state`` (``None``: empty). Returns
     (h [B, S, H, Dv] float32, (C, n, m))."""
+    if _build.on_meta(backend, q.device):
+        b, s, h, dk = q.shape
+        dv = v.shape[-1]
+        st = _ref.empty_state(b, h, dk, dv, q.device) if state is None \
+            else state
+        out = (torch.empty((b, s, h, dv), dtype=F32, device=q.device),
+               tuple(torch.empty_like(x, dtype=F32) for x in st))
+        return _build.meta_launch("mlstm", (q, k, v, li, lf) + tuple(st),
+                                  out, flops(b, s, h, dk, dv))
     if _build.resolve_backend("mlstm", backend, q.device) == "ref":
         return _ref.mlstm_chunkwise_ref(q, k, v, li, lf, state)
     return mlstm_cuda(q, k, v, li, lf, state)

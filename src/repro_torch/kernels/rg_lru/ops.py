@@ -108,6 +108,9 @@ def rg_lru_cuda(a, b, h0, *, plan: Optional[RgLruPlan] = None):
 
 def rg_lru(a, b, h0, *, backend: str = "auto"):
     """a, b: [B, S, W] float32; h0: [B, W] float32 -> h [B, S, W]."""
+    if _build.on_meta(backend, a.device):     # a multiply-add: no products
+        return _build.meta_launch("rg_lru", (a, b, h0), torch.empty_like(a),
+                                  0)
     if _build.resolve_backend("rg_lru", backend, a.device) == "ref":
         return _ref.rg_lru_ref(a, b, h0)
     return rg_lru_cuda(a, b, h0)

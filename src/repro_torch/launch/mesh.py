@@ -55,13 +55,22 @@ def make_local_mesh(data: int = 1, model: int = 1,
     return Mesh(devs.reshape(data, model), ("data", "model"))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's production mesh over distinct cards: (16, 16) as
-    ``("data", "model")``, or (2, 16, 16) as ``("pod", "data", "model")``
-    with ``multi_pod``. Raises on a machine with fewer cards."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Optional[object] = None) -> Mesh:
+    """The reference's production mesh: (16, 16) as ``("data",
+    "model")``, or (2, 16, 16) as ``("pod", "data", "model")`` with
+    ``multi_pod``. ``device=None`` takes distinct cards and raises on a
+    machine with fewer; ``device`` names one device that every entry
+    repeats: ``"meta"`` gives the dry run's 256- or 512-entry mesh, the
+    counterpart of the reference's virtual host devices."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _cards(shape, axes, f"make_production_mesh(multi_pod={multi_pod})")
+    if device is None:
+        return _cards(shape, axes,
+                      f"make_production_mesh(multi_pod={multi_pod})")
+    dev = resolve_device(device)  # a card raises without one
+    devs = np.array([dev] * int(np.prod(shape)), dtype=object)
+    return Mesh(devs.reshape(shape), axes)
 
 
 def single_device_mesh(device: Optional[object] = None) -> Mesh:

@@ -26,6 +26,12 @@ encoder's and for cross-attention, the plain RG-LRU loop, the plain
 chunkwise mLSTM and the sLSTM loop. The Hopper kernels have no backward,
 and their wrappers refuse an input that requires grad.
 
+Each block's ``logical_fn(cfg)`` names the logical axes of its
+parameters, and each cache builder has a ``*_cache_logical`` for its
+leaves (the reference's ``Logical`` trees); the dense, MoE and local-
+attention layers tag their residual stream with ``shard_act`` at the
+reference's points.
+
 Ported: the dense and MoE layers, RecurrentGemma's RG-LRU block and local
 attention, xLSTM's mLSTM and sLSTM blocks, Whisper's encoder and decoder
 layers and the VLM's gated cross-attention layer (its self-attention
@@ -45,6 +51,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as REC
 from repro_torch.models import xlstm as XL
 from repro_torch.models.stack import BlockDef
+from repro_torch.sharding import Logical, shard_act
 
 F32 = torch.float32
 
@@ -148,6 +155,16 @@ def _kv_cache_init(cfg, batch, w, dtype, device):
             "v": torch.zeros((batch, w, kv, hd), dtype=dtype, device=device)}
 
 
+def _kv_cache_logical(cfg=None):
+    return {"k": Logical("batch", "kv_seq", "kv_heads", None),
+            "v": Logical("batch", "kv_seq", "kv_heads", None)}
+
+
+def _seq_sp(x):
+    """The residual stream's constraint: batch rows, sequence-parallel."""
+    return shard_act(x, "batch", "seq_sp", None)
+
+
 # ---------------------------------------------------------------------------
 # dense / moe transformer layer
 # ---------------------------------------------------------------------------
@@ -166,13 +183,19 @@ def dense_layer_init(gen: Optional[torch.Generator], cfg):
             "norm2": _norm_params(gen, cfg), "mlp": mp}
 
 
+def dense_layer_logical(cfg):
+    return {"norm1": Logical("embed"), "attn": L.attn_logical(cfg),
+            "norm2": Logical("embed"), "mlp": L.mlp_logical()}
+
+
 def dense_layer_apply(cfg, p, x, aux, cache):
+    x = _seq_sp(x)
     h = L.rms_norm(x, p.norm1, cfg.norm_eps)
     a, cache = _self_attention(cfg, p.attn, h, aux, cache,
                                window=cfg.sliding_window)
-    x = x + a
+    x = x + _seq_sp(a)
     h = L.rms_norm(x, p.norm2, cfg.norm_eps)
-    x = x + L.mlp_apply(cfg, p.mlp, h)
+    x = x + _seq_sp(L.mlp_apply(cfg, p.mlp, h))
     return x, cache, 0.0
 
 
@@ -192,14 +215,20 @@ def moe_layer_init(gen: Optional[torch.Generator], cfg):
             "norm2": _norm_params(gen, cfg), "moe": mp}
 
 
+def moe_layer_logical(cfg):
+    return {"norm1": Logical("embed"), "attn": L.attn_logical(cfg),
+            "norm2": Logical("embed"), "moe": MOE.moe_logical()}
+
+
 def moe_layer_apply(cfg, p, x, aux, cache):
+    x = _seq_sp(x)
     h = L.rms_norm(x, p.norm1, cfg.norm_eps)
     a, cache = _self_attention(cfg, p.attn, h, aux, cache,
                                window=cfg.sliding_window)
     x = x + a
     h = L.rms_norm(x, p.norm2, cfg.norm_eps)
     y, aux_loss = MOE.moe_apply(cfg, p.moe, h)
-    return x + y, cache, aux_loss
+    return _seq_sp(x + y), cache, aux_loss
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -215,6 +244,7 @@ class _Block(nn.Module):
 
     init_fn = None    # (generator or None, cfg) -> parameter dict
     apply_fn = None   # (cfg, p, x, aux, cache) -> (x, cache, aux_loss)
+    logical_fn = None  # cfg -> the parameters' Logical leaves, same keys
 
     def __init__(self, cfg):
         super().__init__()
@@ -236,6 +266,7 @@ class DenseLayer(_Block):
     ``mlp.{w_gate,w_up,w_down}``)."""
     init_fn = staticmethod(dense_layer_init)
     apply_fn = staticmethod(dense_layer_apply)
+    logical_fn = staticmethod(dense_layer_logical)
 
 
 class MoELayer(_Block):
@@ -243,6 +274,7 @@ class MoELayer(_Block):
     (``norm1``, ``attn``, ``norm2``, ``moe.{router,w_gate,w_up,w_down}``)."""
     init_fn = staticmethod(moe_layer_init)
     apply_fn = staticmethod(moe_layer_apply)
+    logical_fn = staticmethod(moe_layer_logical)
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +286,11 @@ def rec_block_init(gen: Optional[torch.Generator], cfg):
     mp = L.mlp_params(gen, cfg)
     return {"norm1": _norm_params(gen, cfg), "rec": rp,
             "norm2": _norm_params(gen, cfg), "mlp": mp}
+
+
+def rec_block_logical(cfg):
+    return {"norm1": Logical("embed"), "rec": REC.rglru_logical(),
+            "norm2": Logical("embed"), "mlp": L.mlp_logical()}
 
 
 def rec_block_apply(cfg, p, x, aux, cache):
@@ -270,6 +307,7 @@ def rec_block_cache(cfg, batch, shape_cfg, device):
 
 
 def local_attn_apply(cfg, p, x, aux, cache):
+    x = _seq_sp(x)
     h = L.rms_norm(x, p.norm1, cfg.norm_eps)
     a, cache = _self_attention(cfg, p.attn, h, aux, cache,
                                window=cfg.local_window)
@@ -289,6 +327,7 @@ class RecBlock(_Block):
     w_i,b_i,lam,w_out}``, ``norm2``, ``mlp``."""
     init_fn = staticmethod(rec_block_init)
     apply_fn = staticmethod(rec_block_apply)
+    logical_fn = staticmethod(rec_block_logical)
 
 
 class LocalAttn(_Block):
@@ -296,6 +335,7 @@ class LocalAttn(_Block):
     keeps a window of ``cfg.local_window``."""
     init_fn = staticmethod(dense_layer_init)
     apply_fn = staticmethod(local_attn_apply)
+    logical_fn = staticmethod(dense_layer_logical)
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +345,10 @@ class LocalAttn(_Block):
 def mlstm_block_init(gen: Optional[torch.Generator], cfg):
     return {"norm": _norm_params(gen, cfg),
             "mlstm": XL.mlstm_params(gen, cfg)}
+
+
+def mlstm_block_logical(cfg):
+    return {"norm": Logical("embed"), "mlstm": XL.mlstm_logical()}
 
 
 def mlstm_block_apply(cfg, p, x, aux, cache):
@@ -322,6 +366,11 @@ def slstm_block_init(gen: Optional[torch.Generator], cfg):
     mp = L.mlp_params(gen, cfg, d_ff=max(cfg.d_ff, 4 * cfg.d_model // 3))
     return {"norm1": _norm_params(gen, cfg), "slstm": p,
             "norm2": _norm_params(gen, cfg), "mlp": mp}
+
+
+def slstm_block_logical(cfg):
+    return {"norm1": Logical("embed"), "slstm": XL.slstm_logical(),
+            "norm2": Logical("embed"), "mlp": L.mlp_logical()}
 
 
 def slstm_block_apply(cfg, p, x, aux, cache):
@@ -342,6 +391,7 @@ class MLSTMBlock(_Block):
     w_o,skip}``."""
     init_fn = staticmethod(mlstm_block_init)
     apply_fn = staticmethod(mlstm_block_apply)
+    logical_fn = staticmethod(mlstm_block_logical)
 
 
 class SLSTMBlock(_Block):
@@ -349,6 +399,7 @@ class SLSTMBlock(_Block):
     ``norm2``, ``mlp``."""
     init_fn = staticmethod(slstm_block_init)
     apply_fn = staticmethod(slstm_block_apply)
+    logical_fn = staticmethod(slstm_block_logical)
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +412,11 @@ def enc_layer_init(gen: Optional[torch.Generator], cfg):
     mp = L.mlp_params(gen, cfg, gated=False)
     return {"norm1": _norm_params(gen, cfg), "attn": ap,
             "norm2": _norm_params(gen, cfg), "mlp": mp}
+
+
+def enc_layer_logical(cfg):
+    return {"norm1": Logical("embed"), "attn": L.attn_logical(cfg),
+            "norm2": Logical("embed"), "mlp": L.mlp_logical(gated=False)}
 
 
 def enc_layer_apply(cfg, p, x, aux, cache):
@@ -387,6 +443,12 @@ def dec_layer_init(gen: Optional[torch.Generator], cfg):
     return {"norm1": _norm_params(gen, cfg), "attn": ap,
             "norm2": _norm_params(gen, cfg), "xattn": xp,
             "norm3": _norm_params(gen, cfg), "mlp": mp}
+
+
+def dec_layer_logical(cfg):
+    return {"norm1": Logical("embed"), "attn": L.attn_logical(cfg),
+            "norm2": Logical("embed"), "xattn": L.attn_logical(cfg, cross=True),
+            "norm3": Logical("embed"), "mlp": L.mlp_logical(gated=False)}
 
 
 def dec_layer_apply(cfg, p, x, aux, cache):
@@ -416,12 +478,20 @@ def dec_layer_cache(cfg, batch, shape_cfg, device):
     return c
 
 
+def dec_layer_cache_logical(cfg):
+    lg = _kv_cache_logical()
+    lg["xk"] = Logical("batch", "enc_seq", "kv_heads", None)
+    lg["xv"] = Logical("batch", "enc_seq", "kv_heads", None)
+    return lg
+
+
 class EncLayer(_Block):
     """One Whisper encoder layer: pre-norm bidirectional attention (no
     rope, no cache) and the ungated MLP (``norm1``, ``attn``, ``norm2``,
     ``mlp.{w_up,w_down,b_up,b_down}``)."""
     init_fn = staticmethod(enc_layer_init)
     apply_fn = staticmethod(enc_layer_apply)
+    logical_fn = staticmethod(enc_layer_logical)
 
 
 class DecLayer(_Block):
@@ -431,6 +501,7 @@ class DecLayer(_Block):
     its cache is ``{k, v, xk, xv}``."""
     init_fn = staticmethod(dec_layer_init)
     apply_fn = staticmethod(dec_layer_apply)
+    logical_fn = staticmethod(dec_layer_logical)
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +520,12 @@ def vlm_cross_init(gen: Optional[torch.Generator], cfg):
             "gate_mlp": torch.zeros((), dtype=F32, device=dev)}
 
 
+def vlm_cross_logical(cfg):
+    return {"norm1": Logical("embed"), "xattn": L.attn_logical(cfg, cross=True),
+            "gate_attn": Logical(), "norm2": Logical("embed"),
+            "mlp": L.mlp_logical(), "gate_mlp": Logical()}
+
+
 def vlm_cross_apply(cfg, p, x, aux, cache):
     h = L.rms_norm(x, p.norm1, cfg.norm_eps)
     a, cache = _cross_attention(cfg, p.xattn, h, aux.get("img"), aux, cache)
@@ -465,6 +542,11 @@ def vlm_cross_cache(cfg, batch, shape_cfg, device):
                            dtype=dtype, device=device) for n in ("xk", "xv")}
 
 
+def vlm_cross_cache_logical(cfg):
+    return {n: Logical("batch", "kv_seq", "kv_heads", None)
+            for n in ("xk", "xv")}
+
+
 class VLMCross(_Block):
     """The VLM's gated cross-attention layer over the image embeddings
     (``norm1``, ``xattn.{wq,wk,wv,wo}``, ``gate_attn``, ``norm2``, ``mlp``,
@@ -472,17 +554,26 @@ class VLMCross(_Block):
     ``{xk, xv}``."""
     init_fn = staticmethod(vlm_cross_init)
     apply_fn = staticmethod(vlm_cross_apply)
+    logical_fn = staticmethod(vlm_cross_logical)
 
 
 BLOCKS = {
-    "layer": BlockDef("layer", DenseLayer, dense_layer_cache),
-    "moe_layer": BlockDef("moe_layer", MoELayer, dense_layer_cache),
-    "rec": BlockDef("rec", RecBlock, rec_block_cache),
-    "attn": BlockDef("attn", LocalAttn, local_attn_cache),
-    "mlstm": BlockDef("mlstm", MLSTMBlock, mlstm_block_cache),
-    "slstm": BlockDef("slstm", SLSTMBlock, slstm_block_cache),
+    "layer": BlockDef("layer", DenseLayer, dense_layer_cache,
+                      _kv_cache_logical),
+    "moe_layer": BlockDef("moe_layer", MoELayer, dense_layer_cache,
+                          _kv_cache_logical),
+    "rec": BlockDef("rec", RecBlock, rec_block_cache,
+                    lambda cfg: REC.rglru_cache_logical()),
+    "attn": BlockDef("attn", LocalAttn, local_attn_cache, _kv_cache_logical),
+    "mlstm": BlockDef("mlstm", MLSTMBlock, mlstm_block_cache,
+                      lambda cfg: XL.mlstm_cache_logical()),
+    "slstm": BlockDef("slstm", SLSTMBlock, slstm_block_cache,
+                      lambda cfg: XL.slstm_cache_logical()),
     "enc": BlockDef("enc", EncLayer, None),
-    "dec": BlockDef("dec", DecLayer, dec_layer_cache),
-    "self": BlockDef("self", DenseLayer, dense_layer_cache),
-    "cross": BlockDef("cross", VLMCross, vlm_cross_cache),
+    "dec": BlockDef("dec", DecLayer, dec_layer_cache,
+                    dec_layer_cache_logical),
+    "self": BlockDef("self", DenseLayer, dense_layer_cache,
+                     _kv_cache_logical),
+    "cross": BlockDef("cross", VLMCross, vlm_cross_cache,
+                      vlm_cross_cache_logical),
 }

@@ -3,8 +3,10 @@
 
 Layers are plain functions on tensors; parameters come in dict-like
 containers (the ``nn.ParameterDict``s of ``blocks.DenseLayer``) under the
-reference's names and shapes. The reference's sharding annotations are
-dropped: the port runs on one device.
+reference's names and shapes. Each parameter builder has a ``*_logical``
+beside it that names the logical axes of every parameter (the
+reference's ``Logical`` trees), and activations are tagged with
+``shard_act`` at the reference's points (the identity on one device).
 
 Attention:
 
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.sharding import Logical, shard_act
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -332,6 +335,22 @@ def attn_params(gen: Optional[torch.Generator], cfg, *, cross=False,
     return p
 
 
+def attn_logical(cfg, *, cross=False):
+    """The logical axes of ``attn_params``' leaves."""
+    lg = {"wq": Logical("embed", "heads", "head_dim"),
+          "wk": Logical("embed", "kv_heads", "head_dim"),
+          "wv": Logical("embed", "kv_heads", "head_dim"),
+          "wo": Logical("heads", "head_dim", "embed")}
+    if cfg.qkv_bias and not cross:
+        lg["bq"] = Logical("heads", "head_dim")
+        lg["bk"] = Logical("kv_heads", "head_dim")
+        lg["bv"] = Logical("kv_heads", "head_dim")
+    if cfg.qk_norm:
+        lg["q_norm"] = Logical("head_dim")
+        lg["k_norm"] = Logical("head_dim")
+    return lg
+
+
 def _proj(x, w):
     """einsum("bsd,dhk->bshk") as one matrix product."""
     return (x @ w.reshape(w.shape[0], -1)).reshape(
@@ -350,6 +369,9 @@ def attn_project_qkv(cfg, p, x, positions, *, use_rope=True):
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = shard_act(q, "batch", None, "heads", None)
+    k = shard_act(k, "batch", None, "kv_heads", None)
+    v = shard_act(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -381,12 +403,23 @@ def mlp_params(gen: Optional[torch.Generator], cfg, d_ff=None, *,
             "b_down": torch.zeros((d,), dtype=dtype, device=dev)}
 
 
+def mlp_logical(*, gated=True):
+    """The logical axes of ``mlp_params``' leaves."""
+    if gated:
+        return {"w_gate": Logical("embed", "mlp"),
+                "w_up": Logical("embed", "mlp"),
+                "w_down": Logical("mlp", "embed")}
+    return {"w_up": Logical("embed", "mlp"), "w_down": Logical("mlp", "embed"),
+            "b_up": Logical("mlp"), "b_down": Logical("embed")}
+
+
 def mlp_apply(cfg, p, x):
     act = activation(cfg.act)
     if "w_gate" in p:
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = act(x @ p["w_up"] + p["b_up"])
+    h = shard_act(h, "batch", None, "mlp")
     y = h @ p["w_down"]
     if "b_down" in p:
         y = y + p["b_down"]

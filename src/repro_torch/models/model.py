@@ -1,6 +1,5 @@
 """The model API, in torch (port of ``repro.models.model``, for every
-family: dense, moe, hybrid, ssm, the encoder-decoder and the vlm; the
-dry run's specs and sharding trees wait for ROADMAP A9's dry-run item).
+family: dense, moe, hybrid, ssm, the encoder-decoder and the vlm).
 
 ``build_model(cfg, device, backend)`` returns a ``Model`` (an
 ``nn.Module``) on ``device`` — the card unless the caller asks for
@@ -14,7 +13,17 @@ another (``"cpu"``; without a card the default raises) — with:
                                   for encdec or "image_embeds" [B,Ti,D]
                                   for vlm, in the model's dtype)
   decode(tokens, cache, page=) -> (logits, cache)                 [serve]
-  init_cache(batch, shape_cfg) -> cache dict
+  init_cache(batch, shape_cfg, filled=False) -> cache dict
+  logical_params()             -> {name: Logical} beside named_parameters
+  batch_logical / cache_logical-> the inputs' and cache's Logical trees
+  input_specs(shape_cfg)       -> the batch as meta tensors (shapes only)
+  cache_specs(shape_cfg)       -> the filled cache as meta tensors
+
+The logical trees and the specs are the reference's, leaf for leaf, for
+the dry run (``repro_torch.launch.dryrun``). The layers are not stacked
+here (``layers.{i}.…``), so a parameter's logical axes are the
+reference's without its leading ``"layers"`` entry, which no mesh axis
+takes; the cache keeps the reference's stacked layout and its axes.
 
 The cache dict always contains:
   "stack":  per-block-kind stacked caches (KV rings / recurrent states),
@@ -54,7 +63,8 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.stack import (StackDef, apply_stack, build_layers,
                                       init_stack_cache, layer_kinds,
-                                      layer_slots)
+                                      layer_slots, stack_cache_logical)
+from repro_torch.sharding import Logical, shard_act
 
 F32 = torch.float32
 I32 = torch.int32
@@ -166,10 +176,29 @@ class Model(nn.Module):
                                  f"{tuple(p.shape)} on {self.device}")
         self.load_state_dict(dict(state), assign=True)
 
+    def logical_params(self) -> Dict[str, Logical]:
+        """The logical axes of every parameter, keyed as
+        ``named_parameters``."""
+        cfg = self.cfg
+        lg: Dict[str, Logical] = {"embed": Logical("vocab", "embed"),
+                                  "final_norm": Logical("embed")}
+        stacks = [("layers", self.stack)]
+        if self.enc_stack is not None:
+            stacks.append(("encoder", self.enc_stack))
+        for prefix, stack in stacks:
+            for i, kind in enumerate(layer_kinds(stack)):
+                block = stack.blocks[kind].module
+                lg.update(_flatten(block.logical_fn(cfg), f"{prefix}.{i}."))
+        if not cfg.tie_embeddings:
+            lg["lm_head"] = Logical("embed", "vocab")
+        if self.enc_stack is not None:
+            lg["enc_norm"] = Logical("embed")
+        return lg
+
     # -- shared forward ----------------------------------------------------
 
     def _embed(self, tokens):
-        return self.embed[tokens.long()]
+        return shard_act(self.embed[tokens.long()], "batch", None, None)
 
     def _head(self, x):
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -178,7 +207,7 @@ class Model(nn.Module):
         if self.cfg.logit_softcap:
             c = self.cfg.logit_softcap
             logits = c * torch.tanh(logits / c)
-        return logits
+        return shard_act(logits, "batch", None, "vocab")
 
     def _encode(self, frames, mode: str = "encode"):
         """Whisper's encoder over precomputed (stubbed) frame embeddings
@@ -333,20 +362,69 @@ class Model(nn.Module):
             w = 1  # no attention cache; keep a stub ring of 1
         return w
 
-    def init_cache(self, batch: int, shape_cfg: ShapeConfig):
-        """An empty cache (the reference's ``filled=True`` dry-run form is
-        not ported)."""
-        cfg, dev = self.cfg, self.device
+    def init_cache(self, batch: int, shape_cfg: ShapeConfig,
+                   filled: bool = False, device=None):
+        """An empty cache on ``device`` (default the model's), or with
+        ``filled`` the dry run's decode cache: every row holds
+        ``seq_len - 1`` tokens already (``len`` and ``kv_pos`` say so; the
+        stack's leaves keep their initial values)."""
+        cfg = self.cfg
+        dev = self.device if device is None else torch.device(device)
         w = self._window(shape_cfg)
+        if filled:
+            ln = torch.full((batch,), shape_cfg.seq_len - 1, dtype=I32,
+                            device=dev)
+            kvp = _ring_positions(shape_cfg.seq_len - 1, w).to(dev)[None]
+        else:
+            ln = torch.zeros((batch,), dtype=I32, device=dev)
+            kvp = torch.full((1, w), -1, dtype=I32, device=dev)
         cache = {"stack": init_stack_cache(cfg, self.stack, batch, shape_cfg,
                                            dev),
-                 "len": torch.zeros((batch,), dtype=I32, device=dev),
-                 "kv_pos": torch.full((batch, w), -1, dtype=I32, device=dev)}
+                 "len": ln, "kv_pos": kvp.expand(batch, w).clone()}
         if cfg.family == "encdec":
             cache["enc_out"] = torch.zeros(
                 (batch, cfg.encoder_seq_len, cfg.d_model),
                 dtype=getattr(torch, cfg.dtype), device=dev)
         return cache
+
+    def cache_logical(self, batch: int, shape_cfg: ShapeConfig):
+        """``init_cache``'s tree of ``Logical`` leaves."""
+        out = {"stack": stack_cache_logical(self.cfg, self.stack),
+               "len": Logical("batch"), "kv_pos": Logical("batch", "kv_seq")}
+        if self.cfg.family == "encdec":
+            out["enc_out"] = Logical("batch", "enc_seq", None)
+        return out
+
+    def input_specs(self, shape_cfg: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """The step's batch at ``shape_cfg`` as meta tensors."""
+        cfg = self.cfg
+        bsz = shape_cfg.global_batch
+        dtype = getattr(torch, cfg.dtype)
+        seq = shape_cfg.seq_len if shape_cfg.kind in ("train", "prefill") \
+            else 1
+        specs = {"tokens": torch.empty((bsz, seq), dtype=I32, device="meta")}
+        if cfg.family == "encdec" and shape_cfg.kind != "decode":
+            specs["frames"] = torch.empty(
+                (bsz, cfg.encoder_seq_len, cfg.d_model), dtype=dtype,
+                device="meta")
+        if cfg.family == "vlm" and shape_cfg.kind != "decode":
+            specs["image_embeds"] = torch.empty(
+                (bsz, cfg.num_image_tokens, cfg.d_model), dtype=dtype,
+                device="meta")
+        return specs
+
+    def cache_specs(self, shape_cfg: ShapeConfig):
+        """The filled cache at ``shape_cfg`` as meta tensors."""
+        return self.init_cache(shape_cfg.global_batch, shape_cfg,
+                               filled=True, device="meta")
+
+    def batch_logical(self, shape_cfg: ShapeConfig):
+        lg = {"tokens": Logical("batch", None)}
+        if self.cfg.family == "encdec" and shape_cfg.kind != "decode":
+            lg["frames"] = Logical("batch", "enc_seq", None)
+        if self.cfg.family == "vlm" and shape_cfg.kind != "decode":
+            lg["image_embeds"] = Logical("batch", None, None)
+        return lg
 
 
 def _ring_positions(filled_len: int, w: int) -> torch.Tensor:
@@ -417,6 +495,35 @@ def build_model(cfg: ModelConfig, device=None,
     return Model(cfg, device, backend)
 
 
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameter count from shapes alone (the model on the meta device).
+    With ``active_only`` each MoE expert leaf (``moe.w_gate``,
+    ``moe.w_up``, ``moe.w_down``) counts ``k / E`` of its size, summed
+    over the layers that the reference stacks into one leaf before the
+    fraction is taken, as the reference counts."""
+    model = Model(cfg, "meta")
+    frac = (cfg.num_experts_per_tok / cfg.num_experts
+            if cfg.num_experts else 1.0)
+    slots = {"layers": layer_slots(model.stack)}
+    if model.enc_stack is not None:
+        slots["encoder"] = layer_slots(model.enc_stack)
+    stacked: Dict[str, int] = {}
+    for name, p in model.named_parameters():
+        prefix, *rest = name.split(".")
+        key = name
+        if prefix in slots:
+            sec, slot, _ = slots[prefix][int(rest[0])]
+            key = ".".join([prefix, sec, slot] + rest[1:])
+        stacked[key] = stacked.get(key, 0) + p.numel()
+    total = 0
+    for key, n in stacked.items():
+        if active_only and cfg.num_experts and ".moe." in key and \
+                key.rsplit(".", 1)[1] in ("w_gate", "w_up", "w_down"):
+            n = int(n * frac)
+        total += n
+    return total
+
+
 def count_params(cfg: ModelConfig) -> int:
     """Parameter count of the port's model (shapes only, no storage)."""
-    return sum(p.numel() for p in Model(cfg, "meta").parameters())
+    return count_params_analytic(cfg)

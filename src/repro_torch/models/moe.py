@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import activation, dense_init
-from repro_torch.sharding import current_mesh, shard_act
+from repro_torch.sharding import Logical, current_mesh, shard_act
 
 F32 = torch.float32
 I32 = torch.int32
@@ -46,6 +46,14 @@ def moe_params(gen: Optional[torch.Generator], cfg, dtype=None):
             "w_gate": dense_init(gen, (e, d, f), d, dtype),
             "w_up": dense_init(gen, (e, d, f), d, dtype),
             "w_down": dense_init(gen, (e, f, d), f, dtype)}
+
+
+def moe_logical():
+    """The logical axes of ``moe_params``' leaves."""
+    return {"router": Logical("embed", None),
+            "w_gate": Logical("expert", "embed", "mlp"),
+            "w_up": Logical("expert", "embed", "mlp"),
+            "w_down": Logical("expert", "mlp", "embed")}
 
 
 def capacity(cfg, num_tokens: int) -> int:

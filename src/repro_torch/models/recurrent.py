@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rg_lru.ops import rg_lru
 from repro_torch.models import layers as L
+from repro_torch.sharding import Logical, shard_act
 
 F32 = torch.float32
 _C = 8.0  # RG-LRU decay sharpness constant
@@ -46,6 +47,15 @@ def rglru_params(gen: Optional[torch.Generator], cfg, dtype=None):
         "lam": lam,
         "w_out": L.dense_init(gen, (w, d), w, dtype),
     }
+
+
+def rglru_logical():
+    """The logical axes of ``rglru_params``' leaves."""
+    return {"w_x": Logical("embed", "lru"), "w_gate": Logical("embed", "lru"),
+            "conv_k": Logical(None, "lru"), "conv_b": Logical("lru"),
+            "w_r": Logical(None, "lru"), "b_r": Logical("lru"),
+            "w_i": Logical(None, "lru"), "b_i": Logical("lru"),
+            "lam": Logical("lru"), "w_out": Logical("lru", "embed")}
 
 
 def _conv1d_causal(x, kernel, bias, state=None):
@@ -92,8 +102,8 @@ def rglru_scan(a, b, h0=None, *, backend: str = "auto"):
 def rglru_apply(cfg, p, x, cache=None, *, backend: str = "auto"):
     """x: [B,S,D]. cache: {"h": [B,W], "conv": [B,CW-1,W]} or None,
     updated in place. Returns (y, cache)."""
-    xb = x @ p["w_x"]
-    gate = x @ p["w_gate"]
+    xb = shard_act(x @ p["w_x"], "batch", None, "lru")
+    gate = shard_act(x @ p["w_gate"], "batch", None, "lru")
     conv_state = cache["conv"] if cache is not None else None
     xc, new_conv = _conv1d_causal(xb, p["conv_k"], p["conv_b"], conv_state)
     a, b = _gates(p, xc)
@@ -115,3 +125,7 @@ def rglru_cache(cfg, batch: int, device):
     return {"h": torch.zeros((batch, w), dtype=F32, device=device),
             "conv": torch.zeros((batch, cw - 1, w), dtype=F32,
                                 device=device)}
+
+
+def rglru_cache_logical():
+    return {"h": Logical("batch", "lru"), "conv": Logical("batch", None, "lru")}

@@ -23,6 +23,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import Logical
+
 
 @dataclasses.dataclass(frozen=True)
 class BlockDef:
@@ -31,6 +33,7 @@ class BlockDef:
     #                       its init_fn(generator or None, cfg) draws the
     #                       parameter dict
     init_cache: Optional[Callable] = None  # (cfg, batch, shape_cfg, device) -> cache
+    cache_logical: Optional[Callable] = None  # cfg -> the cache's Logical leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +88,24 @@ def init_stack_cache(cfg, stack: StackDef, batch: int, shape_cfg,
             cache["tail"][f"{i}_{kind}"] = bd.init_cache(cfg, batch,
                                                          shape_cfg, device)
     return cache
+
+
+def stack_cache_logical(cfg, stack: StackDef) -> Dict[str, Any]:
+    """``init_stack_cache``'s tree of ``Logical`` leaves: a stacked leaf
+    leads with ``"layers"`` (which no mesh axis takes), as the
+    reference's."""
+    out: Dict[str, Any] = {"scan": {}, "tail": {}}
+    for pos, kind in enumerate(stack.pattern):
+        bd = stack.blocks[kind]
+        if bd.init_cache is not None:
+            out["scan"][f"{pos}_{kind}"] = {
+                k: Logical("layers", *lg.axes)
+                for k, lg in bd.cache_logical(cfg).items()}
+    for i, kind in enumerate(stack.tail):
+        bd = stack.blocks[kind]
+        if bd.init_cache is not None:
+            out["tail"][f"{i}_{kind}"] = bd.cache_logical(cfg)
+    return out
 
 
 def apply_stack(cfg, stack: StackDef, layers, x, aux, cache=None):

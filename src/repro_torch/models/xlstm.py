@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.mlstm.ops import mlstm
 from repro_torch.kernels.mlstm.ref import NEG_INF, mlstm_recurrent_ref
 from repro_torch.models import layers as L
+from repro_torch.sharding import Logical, shard_act
 
 F32 = torch.float32
 
@@ -59,12 +60,24 @@ def mlstm_params(gen: Optional[torch.Generator], cfg, dtype=None):
     }
 
 
+def mlstm_logical():
+    """The logical axes of ``mlstm_params``' leaves."""
+    return {"w_up": Logical("embed", "mlp"), "w_gate": Logical("embed", "mlp"),
+            "w_q": Logical("mlp", "heads", None),
+            "w_k": Logical("mlp", "heads", None),
+            "w_v": Logical("mlp", "heads", None),
+            "w_if": Logical("mlp", "heads", None),
+            "b_if": Logical("heads", None),
+            "w_o": Logical("heads", None, "embed"), "skip": Logical("mlp")}
+
+
 def mlstm_apply(cfg, p, x, cache=None, *, backend: str = "auto"):
     """x: [B,S,D]; cache {"c","n","m"} or None (updated in place).
     Returns (y, cache)."""
     b, s, d = x.shape
     up = x @ p["w_up"]
     gate = x @ p["w_gate"]
+    up = shard_act(up, "batch", None, "mlp")
     q = L._proj(up, p["w_q"])
     k = L._proj(up, p["w_k"])
     v = L._proj(up, p["w_v"])
@@ -96,6 +109,12 @@ def mlstm_cache(cfg, batch: int, device):
             "m": torch.full((batch, h), NEG_INF, dtype=F32, device=device)}
 
 
+def mlstm_cache_logical():
+    return {"c": Logical("batch", "heads", None, None),
+            "n": Logical("batch", "heads", None),
+            "m": Logical("batch", "heads")}
+
+
 # ===========================================================================
 # sLSTM
 # ===========================================================================
@@ -116,6 +135,14 @@ def slstm_params(gen: Optional[torch.Generator], cfg, dtype=None):
         "r_gates": L.dense_init(gen, (h, 4, hd, hd), hd, dtype),
         "w_out": L.dense_init(gen, (d, d), d, dtype),
     }
+
+
+def slstm_logical():
+    """The logical axes of ``slstm_params``' leaves."""
+    return {"w_gates": Logical("embed", None, "mlp"),
+            "b_gates": Logical(None, "mlp"),
+            "r_gates": Logical("heads", None, None, None),
+            "w_out": Logical("mlp", "embed")}
 
 
 def slstm_apply(cfg, p, x, cache=None):
@@ -163,3 +190,7 @@ def slstm_cache(cfg, batch: int, device):
     z = torch.zeros((batch, d), dtype=F32, device=device)
     return {"c": z, "n": torch.ones((batch, d), dtype=F32, device=device),
             "h": z.clone(), "m": z.clone()}
+
+
+def slstm_cache_logical():
+    return {k: Logical("batch", "mlp") for k in ("c", "n", "h", "m")}

@@ -16,12 +16,16 @@ Parallelism carried by each mesh axis (the reference's rules):
   model  -- tensor, expert and sequence parallelism
 
 The logical-axis half (``build_rules``, ``spec_for``, ``Logical``,
-``sharding_ctx``) is pure Python, equal to the reference's on every mesh
-shape; ``spec_for`` returns ``P``, a tuple that reads like JAX's
-``PartitionSpec``. ``shard_act`` is the identity outside a context and
-on a mesh of one device; the port's models call none besides the MoE
-dispatch (ROADMAP A9's dry-run item ports activation and parameter
-sharding; training runs on one device).
+``sharding_ctx``, ``sharding_for``, ``tree_shardings``, ``tree_specs``)
+is pure Python, equal to the reference's on every mesh shape;
+``spec_for`` returns ``P``, a tuple that reads like JAX's
+``PartitionSpec``, and ``NamedSharding`` pairs it with a mesh and gives
+the shard a device holds. The models tag their activations with
+``shard_act`` at the reference's points: the identity outside a context
+and on a mesh of one device; on a mesh of ``meta`` devices (the dry run's
+stand-in for the reference's virtual host devices) it resolves the spec
+and records it (``record_constraints``). The port has no SPMD execution,
+so on a mesh of real devices of more than one entry it raises.
 """
 from __future__ import annotations
 
@@ -217,6 +221,69 @@ class Logical:
         return hash(self.axes)
 
 
+class NamedSharding:
+    """A partition spec on a mesh (the stand-in for JAX's
+    ``NamedSharding``): ``shard_shape`` is the block of an array that one
+    device holds, and ``shard_bytes`` its size."""
+    __slots__ = ("mesh", "spec")
+
+    def __init__(self, mesh: Mesh, spec: P):
+        self.mesh = mesh
+        self.spec = P(*spec)
+
+    def num_shards(self, dim: int) -> int:
+        """How many blocks dimension ``dim`` is cut into."""
+        if dim >= len(self.spec):
+            return 1
+        return _mesh_axis_size(self.mesh, self.spec[dim])
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        return tuple(n // self.num_shards(i) for i, n in enumerate(shape))
+
+    def shard_bytes(self, shape: Sequence[int], dtype) -> int:
+        return int(np.prod(self.shard_shape(shape), dtype=np.int64)) \
+            * dtype.itemsize
+
+    def __eq__(self, other):
+        return isinstance(other, NamedSharding) and \
+            (self.mesh, self.spec) == (other.mesh, other.spec)
+
+    def __hash__(self):
+        return hash((self.mesh, self.spec))
+
+    def __repr__(self):
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def sharding_for(logical, shape, mesh: Mesh, rules) -> NamedSharding:
+    return NamedSharding(mesh, spec_for(logical, shape, mesh, rules))
+
+
+def tree_map(fn, logical_tree, shape_tree):
+    """``fn(logical, leaf)`` over two dict trees of the same keys, where
+    the first has ``Logical`` leaves."""
+    if isinstance(logical_tree, Logical):
+        return fn(logical_tree, shape_tree)
+    if set(logical_tree) != set(shape_tree):
+        raise ValueError(f"trees differ: {sorted(logical_tree)} against "
+                         f"{sorted(shape_tree)}")
+    return {k: tree_map(fn, v, shape_tree[k])
+            for k, v in logical_tree.items()}
+
+
+def tree_shardings(logical_tree, shape_tree, mesh: Mesh, rules):
+    """Zip a logical-axes tree with a tree of tensors (meta tensors serve
+    as shapes) -> ``NamedSharding``s."""
+    return tree_map(lambda lg, t: sharding_for(lg.axes, t.shape, mesh,
+                                                rules),
+                     logical_tree, shape_tree)
+
+
+def tree_specs(logical_tree, shape_tree, mesh: Mesh, rules):
+    return tree_map(lambda lg, t: spec_for(lg.axes, t.shape, mesh, rules),
+                     logical_tree, shape_tree)
+
+
 # ---------------------------------------------------------------------------
 # Activation-sharding context: the ambient (mesh, rules) that model code's
 # ``shard_act`` resolves against
@@ -226,6 +293,7 @@ class _Ctx(threading.local):
     def __init__(self):
         self.mesh: Optional[Mesh] = None
         self.rules: Optional[Dict[str, MeshAxes]] = None
+        self.recorded: Optional[list] = None
 
 
 _CTX = _Ctx()
@@ -250,16 +318,41 @@ def current_rules() -> Optional[Dict[str, MeshAxes]]:
     return _CTX.rules
 
 
+@contextlib.contextmanager
+def record_constraints():
+    """Collect ``(logical axes, shape, spec)`` of every constraint that
+    ``shard_act`` resolves on a mesh of more than one entry, in order."""
+    prev = _CTX.recorded
+    _CTX.recorded = out = []
+    try:
+        yield out
+    finally:
+        _CTX.recorded = prev
+
+
 def shard_act(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """Constrain an activation's placement by logical axis names: the
     identity without an ambient context or on a mesh of one device entry
-    (``mesh.size``, the total). On a larger mesh it raises: activation
-    sharding is ROADMAP A9's dry-run item (training runs on one device)."""
-    if _CTX.mesh is None or _CTX.mesh.size <= 1:
+    (``mesh.size``, the total).
+
+    On a mesh of ``meta`` devices it resolves the spec against the
+    context's rules (a rank mismatch raises, as in the reference), records
+    it where ``record_constraints`` is active, and returns ``x``: the dry
+    run runs the step once at the global shape, and what XLA would
+    partition is read from the specs. On a mesh of real devices of more
+    than one entry it raises: the port runs one process and has no SPMD
+    execution to place an activation over several devices."""
+    mesh = _CTX.mesh
+    if mesh is None or mesh.size <= 1:
         return x
-    raise NotImplementedError(
-        "shard_act on a mesh of more than one device is not ported yet "
-        "(ROADMAP A9, the dry run: activation and parameter sharding)")
+    if mesh.devices.flat[0].type != "meta":
+        raise NotImplementedError(
+            "shard_act on a mesh of several real devices: the port has no "
+            "SPMD execution (a mesh of meta devices runs the dry run)")
+    spec = spec_for(logical, x.shape, mesh, _CTX.rules)
+    if _CTX.recorded is not None:
+        _CTX.recorded.append((tuple(logical), tuple(x.shape), spec))
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -344,8 +437,9 @@ def split_leading(x: torch.Tensor, mesh: Mesh, axes: MeshAxes,
 
 
 __all__ = [
-    "DEFAULT_LOGICAL_RULES", "Logical", "Mesh", "MeshAxes", "P",
-    "block_coords", "block_device", "build_rules", "current_mesh",
-    "current_rules", "norm_axes", "resolve_axes", "shard_act",
-    "sharding_ctx", "spec_for", "split_leading",
+    "DEFAULT_LOGICAL_RULES", "Logical", "Mesh", "MeshAxes", "NamedSharding",
+    "P", "block_coords", "block_device", "build_rules", "current_mesh",
+    "current_rules", "norm_axes", "record_constraints", "resolve_axes",
+    "shard_act", "sharding_ctx", "sharding_for", "spec_for",
+    "split_leading", "tree_map", "tree_shardings", "tree_specs",
 ]

@@ -45,7 +45,9 @@ def test_every_module_is_listed():
                  "repro_torch.optim.optimizer",
                  "repro_torch.data.pipeline",
                  "repro_torch.checkpoint.checkpointing",
-                 "repro_torch.runtime.fault_tolerance"):
+                 "repro_torch.runtime.fault_tolerance",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.hlo_analysis"):
         assert must in MODULES, must
 
 
@@ -111,6 +113,17 @@ def test_model_modules_import_neither_jax_nor_the_reference(ctx):
 def test_training_modules_import_neither_jax_nor_the_reference(ctx, module):
     """Each training module first in a fresh process pulls in nothing of
     JAX, of the reference, or ``ml_dtypes``."""
+    code = _imports_no_reference(ctx, (module,))
+    assert code == 0, \
+        f"importing {module} pulled in jax, repro or ml_dtypes (see the " \
+        f"captured stderr), exit code {code}"
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.dryrun",
+                                    "repro_torch.launch.hlo_analysis"])
+def test_dry_run_modules_import_neither_jax_nor_the_reference(ctx, module):
+    """The dry run and its op-stream counter first in a fresh process pull
+    in nothing of JAX, of the reference, or ``ml_dtypes``."""
     code = _imports_no_reference(ctx, (module,))
     assert code == 0, \
         f"importing {module} pulled in jax, repro or ml_dtypes (see the " \

@@ -331,8 +331,8 @@ def test_mesh_is_hashable_by_names_sizes_and_devices():
 
 def test_shard_act_is_the_identity_where_the_reference_is():
     """Without a context and on a mesh of one device entry the input comes
-    back as it is; on a (1, N) mesh (``size`` N, though ``len(devices)``
-    is 1) the port refuses rather than run unsharded."""
+    back as it is; on a (1, N) mesh of real devices (``size`` N, though
+    ``len(devices)`` is 1) the port refuses rather than run unsharded."""
     x = torch.ones(4, 4)
     assert SH.shard_act(x, "batch", None) is x
     jx = jax.numpy.ones((4, 4))
@@ -344,7 +344,7 @@ def test_shard_act_is_the_identity_where_the_reference_is():
     wide = make_local_mesh(1, 4, device="cpu")
     assert len(wide.devices) == 1 and wide.size == 4
     with SH.sharding_ctx(wide):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="SPMD"):
             SH.shard_act(x, "batch", "heads")
     assert SH.current_mesh() is None and SH.current_rules() is None
     assert SH.Logical("batch", None) == SH.Logical("batch", None)
