@@ -1,0 +1,9 @@
+"""Share of a serving cell's traced window in which no operation ran on
+the device (from the profiler's trace)."""
+from perfbench.metrics._common import idle_pct
+
+MOVES = "serve_tok_s"
+
+
+def read(ctx):
+    return idle_pct(ctx)
