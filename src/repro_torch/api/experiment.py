@@ -39,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch import sharding as SH
+from repro_torch import spans as SP
 from repro_torch.api.results import ResultBlock, ResultSet
 from repro_torch.api.scenario import Scenario, Shape
 from repro_torch.core.engine import (SimParams, mesh_device, resolve_device,
@@ -109,6 +110,47 @@ class PlanCall:
         return ResultBlock(tuple(entries), metrics,
                            time.perf_counter() - t0)
 
+    def execute_sweep(self, exp: "Experiment", j: int,
+                      keep_traces: bool) -> ResultBlock:
+        """Run this bucket, the plan's ``j``-th: its traces, one
+        ``simulate_sweep`` call, the outputs on the host."""
+        n_instr, n_warps, lanes = self.shape
+        with SP.span("api.tracegen", j):
+            parts = [s.materialize() for s in self.scenarios]
+            # a bucket may mix constant-intensity scenarios (scalar gap
+            # per seed, [S]) with phased ones ([S, I]): broadcast the
+            # scalars so the stacked axis is uniform
+            if any(p["compute_gap"].ndim == 2 for p in parts):
+                for p in parts:
+                    g = p["compute_gap"]
+                    if g.ndim == 1:
+                        p["compute_gap"] = np.broadcast_to(
+                            g[:, None], (g.shape[0], n_instr))
+            tr = {k: np.concatenate([p[k] for p in parts])
+                  for k in _TRACE_KEYS}
+        t0 = time.perf_counter()
+        with SP.span("api.simulate", j):
+            out = simulate_sweep(
+                tr["lines"], tr["pcs"], tr["compute_gap"], exp.policies,
+                n_warps=n_warps, lanes=lanes, prm=exp.prm,
+                engine=self.engine, wave_size=self.wave_size,
+                scan_backend=self.scan_backend,
+                cache_backend=self.cache_backend,
+                oracle_types=tr["oracle_wtype"], mesh=self.mesh,
+                policy_axes=self.policy_axes, seed_axes=self.seed_axes,
+                warp_axes=self.warp_axes, device=exp.device)
+        # [P, F, ...] on the host: the copy waits for the card
+        with SP.span("api.results", j):
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+        wall = time.perf_counter() - t0
+        entries = tuple((s.name, seed) for s in self.scenarios
+                        for seed in s.seeds)
+        traces = None
+        if keep_traces:
+            traces = tuple({k: tr[k][f] for k in _TRACE_KEYS}
+                           for f in range(self.flat))
+        return ResultBlock(entries, out, wall, traces)
+
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
@@ -157,44 +199,12 @@ class Plan:
         else:
             mesh_device(exp.mesh, exp.device)
         blocks: List[ResultBlock] = []
-        for call in self.calls:
-            if call.engine == "serving":
-                blocks.append(call.execute_serving(exp))
-                continue
-            n_instr, n_warps, lanes = call.shape
-            parts = [s.materialize() for s in call.scenarios]
-            # a bucket may mix constant-intensity scenarios (scalar gap
-            # per seed, [S]) with phased ones ([S, I]): broadcast the
-            # scalars so the stacked axis is uniform
-            if any(p["compute_gap"].ndim == 2 for p in parts):
-                for p in parts:
-                    g = p["compute_gap"]
-                    if g.ndim == 1:
-                        p["compute_gap"] = np.broadcast_to(
-                            g[:, None], (g.shape[0], n_instr))
-            tr = {k: np.concatenate([p[k] for p in parts])
-                  for k in _TRACE_KEYS}
-            t0 = time.perf_counter()
-            out = simulate_sweep(
-                tr["lines"], tr["pcs"], tr["compute_gap"], exp.policies,
-                n_warps=n_warps, lanes=lanes, prm=exp.prm,
-                engine=call.engine, wave_size=call.wave_size,
-                scan_backend=call.scan_backend,
-                cache_backend=call.cache_backend,
-                oracle_types=tr["oracle_wtype"], mesh=call.mesh,
-                policy_axes=call.policy_axes, seed_axes=call.seed_axes,
-                warp_axes=call.warp_axes, device=exp.device)
-            # [P, F, ...] on the host: the copy waits for the card
-            out = {k: v.cpu().numpy() for k, v in out.items()}
-            wall = time.perf_counter() - t0
-            entries = tuple((s.name, seed) for s in call.scenarios
-                            for seed in s.seeds)
-            traces = None
-            if keep_traces:
-                traces = tuple(
-                    {k: tr[k][f] for k in _TRACE_KEYS}
-                    for f in range(call.flat))
-            blocks.append(ResultBlock(entries, out, wall, traces))
+        with SP.span("api.execute"):
+            for j, call in enumerate(self.calls):
+                if call.engine == "serving":
+                    blocks.append(call.execute_serving(exp))
+                else:
+                    blocks.append(call.execute_sweep(exp, j, keep_traces))
         meta = {"experiment": exp.name, "engine": exp.engine,
                 "n_calls": self.n_calls,
                 "n_executables": self.n_executables}
@@ -326,7 +336,10 @@ class Experiment:
         return Plan(self, tuple(calls))
 
     def run(self, keep_traces: bool = False) -> ResultSet:
-        return self.compile().execute(keep_traces=keep_traces)
+        with SP.span("api.run"):
+            with SP.span("api.compile"):
+                plan = self.compile()
+            return plan.execute(keep_traces=keep_traces)
 
     # convenience for quick derivative experiments
     def with_(self, **changes) -> "Experiment":

@@ -30,6 +30,7 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import spans as SP
 from repro_torch.core import warp_types as WT
 from repro_torch.core.classifier import ClassifierState
 from repro_torch.core.engine import request as REQ
@@ -336,10 +337,12 @@ def simulate_core(trace_lines, trace_pcs, compute_gap, oracle_types,
     module's ``event_loop`` for CPU ones). Returns the metrics dict with
     a leading axis N = P·S (simulation n = p·S + s)."""
     from repro_torch.kernels.event_loop import ops as EVL
-    b = bucket(trace_lines, trace_pcs, compute_gap, oracle_types, pa,
-               n_warps)
-    st, ready, _, ratio_t = EVL.event_loop(b, n_warps=n_warps, lanes=lanes,
-                                           prm=prm, backend=backend)
-    return finalize_bucket(st, ready, ratio_t, compute_gap,
-                           n_instr=trace_lines.shape[1], n_warps=n_warps,
-                           prm=prm)
+    with SP.span("event.loop"):
+        b = bucket(trace_lines, trace_pcs, compute_gap, oracle_types, pa,
+                   n_warps)
+        st, ready, _, ratio_t = EVL.event_loop(
+            b, n_warps=n_warps, lanes=lanes, prm=prm, backend=backend)
+    with SP.span("event.finalize"):
+        return finalize_bucket(st, ready, ratio_t, compute_gap,
+                               n_instr=trace_lines.shape[1],
+                               n_warps=n_warps, prm=prm)

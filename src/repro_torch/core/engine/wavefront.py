@@ -40,6 +40,7 @@ from typing import (Any, Callable, Dict, List, Mapping, NamedTuple,
 import torch
 
 from repro_torch import sharding as SH
+from repro_torch import spans as SP
 from repro_torch.core import classifier as CLF
 from repro_torch.core.engine import request as REQ
 from repro_torch.core.engine.state import SimParams, SimState, init_state
@@ -344,52 +345,57 @@ def simulate_core(trace_lines, trace_pcs, compute_gap, oracle_types,
         return bool(flags[0])
 
     k = 0
-    while k < n_waves and pending():
-        w_sel = select_wave(shards, n_instr, B, dev)
-        if n == 1:
-            loc, mine, locs = w_sel, [], [w_sel]
-        else:
-            own = torch.div(w_sel, wk, rounding_mode="floor")
-            loc = w_sel - own * wk
-            mine = [own == j for j in range(n)]
-            locs = [loc.to(d) for d in devices]
-        ptr_b = _pick(mine, [sh.ptr[lj].to(dev)
-                             for sh, lj in zip(shards, locs)])
-        slot_ok = ptr_b < n_instr
-        i_g = ptr_b.long().clamp(max=n_instr - 1)   # JAX clamps
-        i_gs = [i_g.to(d) for d in devices]
+    more = k < n_waves and pending()
+    while more:
+        with SP.span("wave.step", k):
+            w_sel = select_wave(shards, n_instr, B, dev)
+            if n == 1:
+                loc, mine, locs = w_sel, [], [w_sel]
+            else:
+                own = torch.div(w_sel, wk, rounding_mode="floor")
+                loc = w_sel - own * wk
+                mine = [own == j for j in range(n)]
+                locs = [loc.to(d) for d in devices]
+            ptr_b = _pick(mine, [sh.ptr[lj].to(dev)
+                                 for sh, lj in zip(shards, locs)])
+            slot_ok = ptr_b < n_instr
+            i_g = ptr_b.long().clamp(max=n_instr - 1)   # JAX clamps
+            i_gs = [i_g.to(d) for d in devices]
 
-        def gather(get):
-            return _pick(mine, [get(sh, lj, ij).to(dev) for sh, lj, ij
-                                in zip(shards, locs, i_gs)])
-        wv = Wave(
-            slot_ok=slot_ok, i_g=i_g,
-            t0=gather(lambda sh, lj, ij: sh.ready[lj]),
-            lines_b=gather(lambda sh, lj, ij: sh.lines[lj, ij]),
-            pc_b=gather(lambda sh, lj, ij: sh.pcs[lj, ij]),
-            owt_b=gather(lambda sh, lj, ij: sh.oracle[lj, ij]),
-            # wave-resident classifier rows: gathered once, scattered
-            # back once (wave warp ids are distinct)
-            clf_b=ClassifierState(*(
-                gather(lambda sh, lj, ij, f=f: sh.clf[f][lj])
-                for f in range(len(ClassifierState._fields)))),
-            tokens_b=gather(lambda sh, lj, ij: sh.tokens[lj]))
-        st, an, out = _service(st, an, wv, compute_gap, prm, pa,
-                               scan_backend, cache_backend)
-        for j, (sh, d) in enumerate(zip(shards, devices)):
-            dst = loc if n == 1 else torch.where(mine[j], loc, wk).to(d)
-            ok = torch.where(slot_ok if n == 1 else mine[j] & slot_ok,
-                             loc, wk).to(d)
-            for full, b in zip(sh.clf, out.clf_b):
-                full[dst] = b.to(d)
-            sh.tot_hits.index_add_(0, dst, out.hits_b.to(d))
-            sh.tot_acc.index_add_(0, dst, out.acc_b.to(d))
-            sh.ready[ok] = out.ready_b.to(d)
-            sh.ptr[ok] = (ptr_b + 1).to(d)
-            # Fig 4 snapshot: sampled ratio after each serviced instruction
-            sh.ratio_t[i_gs[j], ok] = out.clf_b.ratio.to(d)
-        k += 1
-        WAVES.waves += 1
+            def gather(get):
+                return _pick(mine, [get(sh, lj, ij).to(dev) for sh, lj, ij
+                                    in zip(shards, locs, i_gs)])
+            wv = Wave(
+                slot_ok=slot_ok, i_g=i_g,
+                t0=gather(lambda sh, lj, ij: sh.ready[lj]),
+                lines_b=gather(lambda sh, lj, ij: sh.lines[lj, ij]),
+                pc_b=gather(lambda sh, lj, ij: sh.pcs[lj, ij]),
+                owt_b=gather(lambda sh, lj, ij: sh.oracle[lj, ij]),
+                # wave-resident classifier rows: gathered once, scattered
+                # back once (wave warp ids are distinct)
+                clf_b=ClassifierState(*(
+                    gather(lambda sh, lj, ij, f=f: sh.clf[f][lj])
+                    for f in range(len(ClassifierState._fields)))),
+                tokens_b=gather(lambda sh, lj, ij: sh.tokens[lj]))
+            st, an, out = _service(st, an, wv, compute_gap, prm, pa,
+                                   scan_backend, cache_backend)
+            for j, (sh, d) in enumerate(zip(shards, devices)):
+                dst = loc if n == 1 else torch.where(mine[j], loc, wk).to(d)
+                ok = torch.where(slot_ok if n == 1 else mine[j] & slot_ok,
+                                 loc, wk).to(d)
+                for full, b in zip(sh.clf, out.clf_b):
+                    full[dst] = b.to(d)
+                sh.tot_hits.index_add_(0, dst, out.hits_b.to(d))
+                sh.tot_acc.index_add_(0, dst, out.acc_b.to(d))
+                sh.ready[ok] = out.ready_b.to(d)
+                sh.ptr[ok] = (ptr_b + 1).to(d)
+                # Fig 4 snapshot: sampled ratio after each serviced instruction
+                sh.ratio_t[i_gs[j], ok] = out.clf_b.ratio.to(d)
+            k += 1
+            WAVES.waves += 1
+            # the next wave's exit test, which waits for this one
+            with SP.span("wave.pending", k):
+                more = k < n_waves and pending()
 
     def cat(rows, dim=0):
         return torch.cat([r.to(dev) for r in rows], dim=dim)

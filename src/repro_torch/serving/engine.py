@@ -43,6 +43,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans as SP
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels.medic_gather.ops import medic_gather_pools
@@ -171,11 +172,12 @@ class ServeEngine:
         data = self.host_store.get(key)
         if data is None:
             return  # never offloaded (still physically present)
-        kv = self._kv_leaves()
-        lo = idx * self.bs
-        kv["k"][:, slot, lo:lo + self.bs] = data[0].to(self.device)
-        kv["v"][:, slot, lo:lo + self.bs] = data[1].to(self.device)
-        COUNTS.restores += 1
+        with SP.span("serve.restore", self.slots[slot].rid):
+            kv = self._kv_leaves()
+            lo = idx * self.bs
+            kv["k"][:, slot, lo:lo + self.bs] = data[0].to(self.device)
+            kv["v"][:, slot, lo:lo + self.bs] = data[1].to(self.device)
+            COUNTS.restores += 1
 
     # -- request lifecycle ----------------------------------------------------
 
@@ -210,19 +212,22 @@ class ServeEngine:
         for key in list(self.host_store):
             if key[0] == slot:
                 del self.host_store[key]
-        toks = self._prompt_tokens(req)
-        # single-sequence prefill merged into the batch cache at `slot`
-        one = ShapeConfig("p", len(toks), 1, "prefill")
-        c1 = self.model.init_cache(1, one)
-        tokens = torch.from_numpy(toks)[None].to(self.device)
-        logits, c1 = self.model.prefill({"tokens": tokens}, c1)
-        COUNTS.admissions += 1
-        self._merge_slot_cache(c1, slot, len(toks))
+        with SP.span("serve.prefill", req.rid):
+            toks = self._prompt_tokens(req)
+            # single-sequence prefill merged into the batch cache at `slot`
+            one = ShapeConfig("p", len(toks), 1, "prefill")
+            c1 = self.model.init_cache(1, one)
+            tokens = torch.from_numpy(toks)[None].to(self.device)
+            logits, c1 = self.model.prefill({"tokens": tokens}, c1)
+            COUNTS.admissions += 1
+        with SP.span("serve.merge", req.rid):
+            self._merge_slot_cache(c1, slot, len(toks))
         # prefilled blocks enter the pool under the insertion policy,
         # without fetch cost (they were just produced on-device)
-        stype = int(self.pool.seq_type[slot])
-        for key in self._block_keys(req, len(toks)):
-            self.pool.insert_prefill(key, stype)
+        with SP.span("serve.pool_insert", req.rid):
+            stype = int(self.pool.seq_type[slot])
+            for key in self._block_keys(req, len(toks)):
+                self.pool.insert_prefill(key, stype)
 
     def _merge_slot_cache(self, c1, slot: int, length: int):
         """Write a 1-sequence prefill cache into batch position `slot`."""
@@ -265,31 +270,23 @@ class ServeEngine:
         self.lens[active] += 1
         COUNTS.decode_steps += 1
 
-    # -- main loop --------------------------------------------------------------
-
-    @torch.no_grad()
-    def run(self, requests: List[Request], max_steps: int = 2000):
-        pending = sorted(requests, key=lambda r: r.arrival)
-        done: List[Request] = []
-        ready_at = np.zeros(self.ecfg.max_slots)
-        # a stalled slot's fetches are in flight: when they land, the
-        # delayed decode commits with the streamed data (already restored
-        # at access time) instead of re-running the residency transaction
-        # — re-accessing would re-miss bypassed blocks forever and
-        # livelock every mostly-miss sequence behind its own streaming
-        fetch_pending = np.zeros(self.ecfg.max_slots, bool)
-        tokens_out = 0
-        step = 0
-        while (pending or any(self.slots)) and step < max_steps:
-            now = float(step)
-            # admissions
-            for i, cur in enumerate(self.slots):
-                if cur is None and pending and pending[0].arrival <= now:
-                    self._admit(pending.pop(0), i, step)
-                    ready_at[i] = now
-                    fetch_pending[i] = False
-            # residency transactions for the upcoming decode
-            active = np.zeros(self.ecfg.max_slots, bool)
+    def _step(self, step: int, pending: List[Request], done: List[Request],
+              ready_at: np.ndarray, fetch_pending: np.ndarray) -> int:
+        """One engine step: admissions, the residency transactions for
+        the upcoming decode, the decode step and the stream-out after it.
+        Returns the tokens decoded."""
+        now = float(step)
+        # admissions
+        for i, cur in enumerate(self.slots):
+            if cur is None and pending and pending[0].arrival <= now:
+                req = pending.pop(0)
+                with SP.span("serve.admit", req.rid):
+                    self._admit(req, i, step)
+                ready_at[i] = now
+                fetch_pending[i] = False
+        # residency transactions for the upcoming decode
+        active = np.zeros(self.ecfg.max_slots, bool)
+        with SP.span("serve.residency", step):
             for i, req in enumerate(self.slots):
                 if req is None or ready_at[i] > now:
                     if req is not None:
@@ -317,27 +314,52 @@ class ServeEngine:
                     req.stall_steps += 1
                 else:
                     active[i] = True
-            if active.any():
-                self._decode_step(active)
-                for i, req in enumerate(self.slots):
-                    if req is None or not active[i]:
-                        continue
-                    req.generated += 1
-                    tokens_out += 1
-                    if req.first_token_step < 0:
-                        req.first_token_step = step
-                    if req.generated >= req.decode_len:
-                        req.finish_step = step
-                        done.append(req)
-                        self.slots[i] = None
-                # streamed (bypassed) blocks leave the device again
-                for i, req in enumerate(self.slots):
-                    if req is None or not active[i]:
-                        continue
-                    length = int(self.lens[i])
-                    for key in self._block_keys(req, min(length, self.ecfg.max_len)):
-                        if not self.pool.is_resident(key) and key in self.host_store:
-                            self._offload(key)
+        if not active.any():
+            return 0
+        with SP.span("serve.decode", step):
+            self._decode_step(active)
+        tokens = 0
+        for i, req in enumerate(self.slots):
+            if req is None or not active[i]:
+                continue
+            req.generated += 1
+            tokens += 1
+            if req.first_token_step < 0:
+                req.first_token_step = step
+            if req.generated >= req.decode_len:
+                req.finish_step = step
+                done.append(req)
+                self.slots[i] = None
+        # streamed (bypassed) blocks leave the device again
+        with SP.span("serve.stream_out", step):
+            for i, req in enumerate(self.slots):
+                if req is None or not active[i]:
+                    continue
+                length = int(self.lens[i])
+                for key in self._block_keys(req, min(length, self.ecfg.max_len)):
+                    if not self.pool.is_resident(key) and key in self.host_store:
+                        self._offload(key)
+        return tokens
+
+    # -- main loop --------------------------------------------------------------
+
+    @torch.no_grad()
+    def run(self, requests: List[Request], max_steps: int = 2000):
+        pending = sorted(requests, key=lambda r: r.arrival)
+        done: List[Request] = []
+        ready_at = np.zeros(self.ecfg.max_slots)
+        # a stalled slot's fetches are in flight: when they land, the
+        # delayed decode commits with the streamed data (already restored
+        # at access time) instead of re-running the residency transaction
+        # — re-accessing would re-miss bypassed blocks forever and
+        # livelock every mostly-miss sequence behind its own streaming
+        fetch_pending = np.zeros(self.ecfg.max_slots, bool)
+        tokens_out = 0
+        step = 0
+        while (pending or any(self.slots)) and step < max_steps:
+            with SP.span("serve.step", step):
+                tokens_out += self._step(step, pending, done, ready_at,
+                                         fetch_pending)
             step += 1
 
         snap = self.pool.snapshot()

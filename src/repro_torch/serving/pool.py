@@ -1,8 +1,9 @@
 """MeDiC KV-block-pool manager (altitude B — the production mechanism).
 
 Host numpy, copied from ``repro.serving.pool`` so that it is bit-exact
-against it; only the imports name the port's own ``warp_types`` and
-``policy``.
+against it; the imports name the port's own ``warp_types`` and
+``policy``, and the metrics add ``lookups`` (every block key looked up,
+the denominator of the pool's hit share).
 
 Maps the paper's four components onto the two-tier KV store of a
 serving runtime (see DESIGN.md §2 table):
@@ -129,9 +130,9 @@ class MedicPoolManager:
         # two-queue transfer engine (④)
         self.hp_free = 0.0
         self.lp_free = 0.0
-        # metrics
+        # metrics: block keys looked up (hits and misses), misses
+        self.lookups = 0
         self.fetches = 0
-        self.fetch_bytes_blocks = 0
         self.qdelays: List[float] = []
         self.evictions_by_type = np.zeros(WT.NUM_TYPES, np.int64)
         self.bypassed_blocks = 0
@@ -217,6 +218,7 @@ class MedicPoolManager:
         stype = int(self.seq_type[slot])
         ready = now
         fetched = []
+        self.lookups += len(blocks)
         for blk in blocks:
             key = resident_key if resident_key is not None else (slot, blk)
             row = self._find(key)
@@ -227,7 +229,6 @@ class MedicPoolManager:
                 continue
             # ---- miss -> fetch through the two-queue scheduler (④) -------
             self.fetches += 1
-            self.fetch_bytes_blocks += 1
             fetched.append(blk)
             if tb.hp_by_type[stype]:
                 t0 = max(self.hp_free, now)
@@ -325,6 +326,7 @@ class MedicPoolManager:
                                 seg_allhit[k] = False
                         continue
                 self._rank[rows] = 0
+                self.lookups += int(qe - qs)
                 self._advance_hits(seg_owner[si:sj], ends[si:sj] -
                                    starts[si:sj])
                 si = sj

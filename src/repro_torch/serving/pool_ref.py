@@ -45,7 +45,6 @@ class DictPoolManager:
         self.lp_free = 0.0
         # metrics
         self.fetches = 0
-        self.fetch_bytes_blocks = 0
         self.qdelays: List[float] = []
         self.evictions_by_type = np.zeros(WT.NUM_TYPES, np.int64)
         self.bypassed_blocks = 0
@@ -103,7 +102,6 @@ class DictPoolManager:
                 continue
             # ---- miss -> fetch through the two-queue scheduler (④) -------
             self.fetches += 1
-            self.fetch_bytes_blocks += 1
             fetched.append(blk)
             hp = medic and WT.is_priority_type(np.int32(stype))
             if hp:
