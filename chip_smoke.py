@@ -6,7 +6,7 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``); exits non-zero
 without them. Phases, one JSON line each on stdout (with its seconds):
 
   1. device   — the card's name and power limit;
-  2. build    — all eight CUDA kernels compiled from ``src/repro_torch/csrc``
+  2. build    — all nine CUDA kernels compiled from ``src/repro_torch/csrc``
      (one ``nvcc`` each, all at once);
   3. wave_queue — the timing-pass kernel against its plain PyTorch
      version on the card, bitwise, on fuzzed waves of 1 to 262,144 slots
@@ -46,6 +46,12 @@ without them. Phases, one JSON line each on stdout (with its seconds):
      within 1e-6, the paper's ordering, one event-loop launch per bucket
      (counted from 0); then ``registry.PAPER_FIG7`` (one bucket of 165
      simulations): its wall and harmonic-mean speedups;
+  8b. tracegen — the CUDA sampler against the numpy sampler, bitwise on
+     lines, pcs and oracle labels (``TRACEGEN_CASES``: a paper workload
+     at two seeds, PHASED256, PHASE2K's legacy flip, HAMMER16K); ms,
+     device ms and the input copy's ms at HAMMER16K's and BFS's shapes
+     beside the numpy sampler's ms; ``registry.PAPER_FIG7`` through
+     ``Experiment.run``: one launch a scenario, every cell on the card;
   9. wave1    — BP at paper scale × {Baseline, MeDiC}: the wavefront engine
      with waves of one warp equals the event engine within rtol = atol =
      1e-5;
@@ -242,6 +248,7 @@ from repro_torch.core.engine import (SimParams, init_state,  # noqa: E402
                                      simulate_sweep)
 from repro_torch.core.engine import event as EV  # noqa: E402
 from repro_torch.core.engine import wavefront as WF  # noqa: E402
+from repro_torch.core.tracegen.sampler import _sample_cells  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cache_pass import ops as CPASS  # noqa: E402
@@ -251,6 +258,7 @@ from repro_torch.kernels.flash_attention import ops as FLASH  # noqa: E402
 from repro_torch.kernels.medic_gather import ops as GATHER  # noqa: E402
 from repro_torch.kernels.mlstm import ops as MLSTM  # noqa: E402
 from repro_torch.kernels.rg_lru import ops as RGLRU  # noqa: E402
+from repro_torch.kernels.tracegen import ops as KTG  # noqa: E402
 from repro_torch.kernels.wavefront_scan import ops as WSCAN  # noqa: E402
 from repro_torch.kernels.wavefront_scan.ref import QueueCarry  # noqa: E402
 from repro_torch.launch import dryrun as DR  # noqa: E402
@@ -328,13 +336,17 @@ PORT_KERNELS = {
     "event_loop": dict(
         route="cuda", source="src/repro_torch/csrc/event_loop.cu",
         replaces="src/repro/core/engine/event.py:146", pallas=None),
+    "tracegen": dict(
+        route="cuda", source="src/repro_torch/csrc/tracegen.cu",
+        replaces="src/repro/core/tracegen/sampler.py:33", pallas=None),
 }
 #: the C source of each kernel (its Kernel object's name)
 SOURCES = {"wave_queue": "wave_queue", "wave_cache": "wave_cache",
            "medic_gather": "medic_gather",
            "paged_decode_attention": "decode_attention",
            "flash_attention": "flash_attention", "rg_lru": "rg_lru",
-           "mlstm": "mlstm", "event_loop": "event_loop"}
+           "mlstm": "mlstm", "event_loop": "event_loop",
+           "tracegen": "tracegen"}
 #: Pallas kernels of the reference that the port has not ported yet
 TO_PORT: list = []
 #: each kernel's wrapper object, whose ``launches`` counts its launches
@@ -343,7 +355,7 @@ LAUNCHERS = {"wave_queue": WSCAN.WAVE_QUEUE, "wave_cache": CPASS.WAVE_CACHE,
              "paged_decode_attention": DEC.DECODE_ATTENTION,
              "flash_attention": FLASH.FLASH_ATTENTION,
              "rg_lru": RGLRU.RG_LRU, "mlstm": MLSTM.MLSTM,
-             "event_loop": EVL.EVENT_LOOP}
+             "event_loop": EVL.EVENT_LOOP, "tracegen": KTG.TRACEGEN}
 
 
 def reset_launches(names=None) -> None:
@@ -977,6 +989,73 @@ def phase_event() -> dict:
                 quick=quick, full=dict(
                     full, chain_bound_ms=chain_bound_ms(
                         full["steps_per_block"])))
+
+
+#: (spec, seeds) the CUDA sampler is held against the numpy sampler on in
+#: chip_smoke: a paper workload at two seeds, scheduled phases with churn,
+#: the legacy flip, the benchmark's 16,384 warps
+TRACEGEN_CASES = (("BFS", (0, 2**31 + 11)), ("PHASED256", (0, 5)),
+                  ("PHASE2K", (3,)), ("HAMMER16K", (2**31 + 99,)))
+
+
+def tracegen_spec(name: str) -> TG.TraceSpec:
+    if name in WL.WORKLOADS:
+        return TG.TraceSpec.from_workload(WL.WORKLOADS[name])
+    return {**TG.STRESS_SPECS, **TG.SHARD_STRESS_SPECS, **TG.PHASED_SPECS,
+            **TG.PHASED_RECOVER_SPECS}[name]
+
+
+def _tracegen_timing(spec: TG.TraceSpec) -> dict:
+    """One seed of ``spec`` through the CUDA sampler: ``ms`` (CUDA events
+    around the wrapper, host lowering included), ``device_ms`` (the
+    kernel alone, on inputs already on the card) and ``copy_ms`` (its
+    inputs to the card), ``plain_ms`` (the numpy sampler), and the bytes
+    it must move: every output written once, every input read once."""
+    ins, _ = KTG._ref.cell_inputs(spec, (1,))
+    blob, offsets = KTG._pack(ins[1:])
+    buf = torch.from_numpy(blob).to(DEV)
+    t0 = time.perf_counter()
+    _sample_cells(spec, (1,))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    cells = spec.n_instr * spec.n_warps * spec.lines_per_instr
+    out_bytes = 4 * cells + 8 * cells // spec.lines_per_instr
+    return dict(
+        ms=time_ms(lambda: KTG.sample_cells(spec, (1,), DEV)),
+        device_ms=device_ms(lambda: KTG._draw(ins.dims, buf, offsets)),
+        copy_ms=device_ms(
+            lambda: torch.from_numpy(blob).to(DEV, non_blocking=True)),
+        plain_ms=plain_ms, cells=cells, bytes=out_bytes + blob.nbytes,
+        ops=0)
+
+
+def phase_tracegen() -> dict:
+    """The CUDA sampler against the numpy sampler on the card, bitwise
+    (``TRACEGEN_CASES``); its time at HAMMER16K's and a fig7 workload's
+    shapes; PAPER_FIG7 through ``Experiment.run``: one launch a scenario,
+    every cell drawn on the card."""
+    for name, seeds in TRACEGEN_CASES:
+        spec = tracegen_spec(name)
+        host = _sample_cells(spec, seeds)
+        got = KTG.sample_cells(spec, seeds, DEV)
+        for k in KTG.DEVICE_KEYS:
+            check(torch.equal(got[k].cpu(), torch.from_numpy(host[k])),
+                  f"tracegen {name}: {k} differs from the numpy sampler")
+    hammer = _tracegen_timing(tracegen_spec("HAMMER16K"))
+    fig7 = _tracegen_timing(tracegen_spec("BFS"))
+    reset_launches(("tracegen",))
+    before = dict(TG.CELLS)
+    exp = REG.paper_fig7(seeds=(11,)).with_(device=DEV)
+    exp.run()
+    launches = KTG.TRACEGEN.launches
+    cells = len(exp.scenarios) * fig7["cells"]
+    check(launches == len(exp.scenarios),
+          f"tracegen: {launches} launches for {len(exp.scenarios)} "
+          "scenarios")
+    check(TG.CELLS["device"] - before["device"] == cells
+          and TG.CELLS["host"] == before["host"],
+          f"tracegen: PAPER_FIG7 sampled {TG.CELLS} (from {before})")
+    return dict(max_abs_err=0.0, cases=len(TRACEGEN_CASES),
+                launches=launches, **hammer, fig7=fig7)
 
 
 def phase_fig7() -> dict:
@@ -3538,6 +3617,7 @@ def run_phases(paper, dry) -> dict:
                       ("wave_cache", phase_wave_cache),
                       ("golden", phase_golden), ("scale", phase_scale),
                       ("event", phase_event), ("fig7", phase_fig7),
+                      ("tracegen", phase_tracegen),
                       ("wave1", phase_wave1), ("api", phase_api),
                       ("sharded", phase_sharded),
                       ("medic_gather", phase_medic_gather),
@@ -3673,6 +3753,17 @@ def main() -> int:
                   device_ms=ev["full"]["device_ms"],
                   chain_bound_ms=ev["full"]["chain_bound_ms"],
                   **bound(ev["full"], F32_OPS_PER_S))))
+    # the port-side sampler: bound by its bytes (integer work); no PyTorch
+    # call computes the draws
+    tg = results["tracegen"]
+    rows.append(dict(
+        name="tracegen", **PORT_KERNELS["tracegen"], launches=tg["launches"],
+        max_abs_err=tg["max_abs_err"], ms=tg["ms"],
+        device_ms=tg["device_ms"], plain_ms=tg["plain_ms"],
+        **bound(tg, F32_OPS_PER_S), library_ms=None,
+        library_device_ms=None,
+        launches_by_path={"paper_fig7": tg["launches"]},
+        copy_ms=tg["copy_ms"], cells=tg["cells"], fig7=tg["fig7"]))
     check(set(KERNELS) | set(PORT_KERNELS) == {r["name"] for r in rows}
           and not TO_PORT, "a Pallas kernel of the reference has no row")
     print(json.dumps({"kernels": rows, "to_port": TO_PORT}), flush=True)

@@ -17,6 +17,14 @@ executables.
 Runs go to the card unless ``device`` says otherwise (``device="cpu"``
 runs the plain PyTorch versions). A block's ``wall_s`` ends when its
 outputs are numpy arrays on the host, which waits for the card.
+
+Each bucket's traces are made where its sweep runs (``api.tracegen``):
+on the card, the host lowers each scenario's warps and the CUDA sampler
+(``repro_torch.kernels.tracegen``) draws the cells into device memory;
+on the CPU, and for every sweep on a mesh, the numpy sampler draws them
+on the host. ``keep_traces=True`` brings a card's trace to the host
+once, one copy a key, so ``ResultSet.trace`` returns numpy arrays on
+every path.
 ``engine="serving"`` runs the open-loop serving simulator
 (``repro_torch.serving.sim``), which is host-side numpy as in the
 reference: its buckets run on the host whatever ``device`` is, though a
@@ -37,6 +45,7 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import sharding as SH
 from repro_torch import spans as SP
@@ -50,6 +59,16 @@ from repro_torch.serving.sim import (POOL_BACKENDS, generate_serving,
                                      simulate_serving)
 
 _TRACE_KEYS = ("lines", "pcs", "compute_gap", "archetype", "oracle_wtype")
+
+
+def _join(parts):
+    """The scenarios' arrays (numpy, or tensors on one device) stacked on
+    the seed axis; a lone part as it is."""
+    if len(parts) == 1:
+        return parts[0]
+    if torch.is_tensor(parts[0]):
+        return torch.cat(parts)
+    return np.concatenate(parts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,10 +132,15 @@ class PlanCall:
     def execute_sweep(self, exp: "Experiment", j: int,
                       keep_traces: bool) -> ResultBlock:
         """Run this bucket, the plan's ``j``-th: its traces, one
-        ``simulate_sweep`` call, the outputs on the host."""
+        ``simulate_sweep`` call, the outputs on the host.
+
+        The traces are made where the sweep runs: without a mesh on its
+        device (the CUDA sampler's cells stay on the card), with a mesh
+        on the host, so that each block moves only its own part."""
         n_instr, n_warps, lanes = self.shape
+        at = resolve_device(exp.device) if self.mesh is None else None
         with SP.span("api.tracegen", j):
-            parts = [s.materialize() for s in self.scenarios]
+            parts = [s.materialize(at) for s in self.scenarios]
             # a bucket may mix constant-intensity scenarios (scalar gap
             # per seed, [S]) with phased ones ([S, I]): broadcast the
             # scalars so the stacked axis is uniform
@@ -126,8 +150,7 @@ class PlanCall:
                     if g.ndim == 1:
                         p["compute_gap"] = np.broadcast_to(
                             g[:, None], (g.shape[0], n_instr))
-            tr = {k: np.concatenate([p[k] for p in parts])
-                  for k in _TRACE_KEYS}
+            tr = {k: _join([p[k] for p in parts]) for k in _TRACE_KEYS}
         t0 = time.perf_counter()
         with SP.span("api.simulate", j):
             out = simulate_sweep(
@@ -146,8 +169,10 @@ class PlanCall:
         entries = tuple((s.name, seed) for s in self.scenarios
                         for seed in s.seeds)
         traces = None
-        if keep_traces:
-            traces = tuple({k: tr[k][f] for k in _TRACE_KEYS}
+        if keep_traces:     # one copy to the host a key
+            host = {k: v.cpu().numpy() if torch.is_tensor(v) else v
+                    for k, v in tr.items()}
+            traces = tuple({k: host[k][f] for k in _TRACE_KEYS}
                            for f in range(self.flat))
         return ResultBlock(entries, out, wall, traces)
 

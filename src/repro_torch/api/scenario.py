@@ -9,20 +9,26 @@ plus the label under which its results appear in a ``ResultSet``.
 
 Scenarios are immutable and hashable, so they can key caches and be
 deduplicated by the plan compiler. Lowering to concrete trace arrays
-goes through ``repro_torch.core.tracegen`` (the counter-RNG vectorized
-sampler, bit-exact with the reference's), on the host, in numpy; a
-serving scenario lowers to request streams through
-``repro_torch.serving.sim``'s counter-RNG arrival processes.
+goes through ``repro_torch.core.tracegen`` (the counter-RNG samplers,
+bit-exact with the reference's). ``materialize()`` draws the cells on
+the host, in numpy; ``materialize(device)`` draws them where the
+simulations will run: on a CUDA device with the CUDA sampler
+(``repro_torch.kernels.tracegen``: the host lowers the warps, the kernel
+writes the cells into device memory), on the CPU with the numpy sampler.
+A serving scenario lowers to request streams through
+``repro_torch.serving.sim``'s counter-RNG arrival processes, on the
+host.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 
 from repro_torch.core import tracegen as TG
 from repro_torch.core import workloads as WL
+from repro_torch.kernels.tracegen import ops as KTG
 from repro_torch.serving.sim.arrivals import generate_serving
 from repro_torch.serving.sim.spec import SERVING_SPECS, ServingSpec
 
@@ -150,11 +156,17 @@ class Scenario:
     def n_seeds(self) -> int:
         return len(self.seeds)
 
-    def materialize(self) -> Dict[str, np.ndarray]:
+    def materialize(self, device=None) -> Dict[str, Any]:
         """Concrete trace arrays, seed-stacked along the leading axis:
         lines i32[S, I, W, L], pcs i32[S, I, W], compute_gap f32[S]
         (f32[S, I] when the phase schedule varies intensity),
         archetype i32[S, W] (+ archetype2), oracle_wtype i32[S, I, W].
+
+        Without ``device`` every array is numpy, sampled on the host.
+        With one, ``lines``, ``pcs`` and ``oracle_wtype`` are tensors on
+        it: drawn there by the CUDA sampler on a CUDA device, by the
+        numpy sampler on the CPU (``kernels.tracegen.ops.sample_cells``),
+        the same bits either way; the rest stay numpy.
 
         Serving scenarios instead lower to seed-stacked request streams:
         arrival f64[S, n], prompt_len/decode_len/prefix_id/prefix_len
@@ -163,5 +175,13 @@ class Scenario:
             per_seed = [generate_serving(self.spec, s) for s in self.seeds]
             return {k: np.stack([p[k] for p in per_seed])
                     for k in per_seed[0]}
-        tr = TG.generate_batch([self.trace_spec], self.seeds)
-        return {k: v[0] for k, v in tr.items()}
+        if device is None:
+            tr = TG.generate_batch([self.trace_spec], self.seeds)
+            return {k: v[0] for k, v in tr.items()}
+        spec = self.trace_spec
+        tr = KTG.sample_cells(spec, self.seeds, device)
+        tr.pop("archetype_phases")
+        gap = np.asarray(TG.lowered_gap(spec), np.float32)
+        tr["compute_gap"] = np.broadcast_to(
+            gap, (self.n_seeds, *gap.shape)).copy()
+        return tr

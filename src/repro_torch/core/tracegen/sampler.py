@@ -28,8 +28,36 @@ import numpy as np
 
 from repro_torch.core import warp_types as WT
 from repro_torch.core.tracegen import rng
-from repro_torch.core.tracegen.spec import (TraceSpec, lower, lowered_gap,
-                                      phase_of_instr, trace_key)
+from repro_torch.core.tracegen.spec import (TraceSpec, WarpParams, lower,
+                                            lowered_gap, phase_of_instr,
+                                            trace_key)
+
+#: cells (instruction × warp × lane, every seed) sampled in this process,
+#: by path: ``"host"`` by the numpy sampler here, ``"device"`` by the CUDA
+#: sampler (``repro_torch.kernels.tracegen``); a run reads from it which
+#: path its sweeps took
+CELLS: Dict[str, int] = {"device": 0, "host": 0}
+
+#: the stream tags of a cell's four draws, in the order ``cell_keys``
+#: gives their keys: reuse uniform, shared uniform, pool index, working-set
+#: index
+CELL_TAGS = (rng.TAG_REUSE_U, rng.TAG_SHARED_U, rng.TAG_SHARED_IDX,
+             rng.TAG_WS_IDX)
+
+
+def cell_keys(spec: TraceSpec, seeds) -> np.ndarray:
+    """u64[S, 4]: each seed's stream keys of the ``CELL_TAGS`` draws."""
+    roots = np.asarray([trace_key(spec.name, int(s)) for s in seeds],
+                       np.uint64)
+    return np.stack([rng.stream_key(roots, t) for t in CELL_TAGS], -1)
+
+
+def warp_outputs(wp: WarpParams) -> Dict[str, np.ndarray]:
+    """The per-warp outputs: phase-0 and last-phase archetypes [S, W] and
+    the full per-phase matrix [S, W, P]."""
+    return {"archetype": wp.arch[:, :, 0].astype(np.int32),
+            "archetype2": wp.arch[:, :, -1].astype(np.int32),
+            "archetype_phases": wp.arch.astype(np.int32)}
 
 
 def _sample_cells(spec: TraceSpec, seeds) -> Dict[str, np.ndarray]:
@@ -38,10 +66,11 @@ def _sample_cells(spec: TraceSpec, seeds) -> Dict[str, np.ndarray]:
     n_seeds = len(seeds)
     i_n, w_n, l_n = spec.n_instr, spec.n_warps, spec.lines_per_instr
     layout, wp = lower(spec, seeds)
+    CELLS["host"] += n_seeds * i_n * w_n * l_n
     phase_of = phase_of_instr(spec)                               # i64[I]
 
-    roots = np.asarray([trace_key(spec.name, int(s)) for s in seeds],
-                       np.uint64).reshape(-1, 1, 1, 1)            # [S,1,1,1]
+    k_reuse, k_shared, k_pool, k_ws = (
+        k.reshape(-1, 1, 1, 1) for k in cell_keys(spec, seeds).T)  # [S,1,1,1]
     ii = np.arange(i_n, dtype=np.int64)[:, None, None]            # [I,1,1]
     wi = np.arange(w_n, dtype=np.int64)[None, :, None]            # [1,W,1]
     li = np.arange(l_n, dtype=np.int64)[None, None, :]            # [1,1,L]
@@ -55,17 +84,15 @@ def _sample_cells(spec: TraceSpec, seeds) -> Dict[str, np.ndarray]:
     reuse_t = wp.reuse[sg, wg, pg]
     shared_t = wp.shared[sg, wg, pg]
 
-    u = rng.uniform(rng.stream_key(roots, rng.TAG_REUSE_U), flat)
+    u = rng.uniform(k_reuse, flat)
     reuse_hit = (ws_size_t > 0) & (u < reuse_t)
-    u2 = rng.uniform(rng.stream_key(roots, rng.TAG_SHARED_U), flat)
+    u2 = rng.uniform(k_shared, flat)
     use_shared = reuse_hit & (shared_t > 0) & (u2 < shared_t)
 
-    pool_idx = rng.randint(rng.stream_key(roots, rng.TAG_SHARED_IDX),
-                           flat, spec.shared_pool_lines)
+    pool_idx = rng.randint(k_pool, flat, spec.shared_pool_lines)
     shared_line = wp.pool[sg, pool_idx]                           # [S,I,W,L]
 
-    ws_idx = rng.randint(rng.stream_key(roots, rng.TAG_WS_IDX), flat,
-                         np.maximum(ws_size_t, 1))
+    ws_idx = rng.randint(k_ws, flat, np.maximum(ws_size_t, 1))
     ws_line = wp.ws_table[sg, wg, pg, ws_idx]                     # [S,I,W,L]
 
     fresh_line = layout.fresh_addr(wi[None], ii[None] * l_n + li[None])
@@ -85,10 +112,8 @@ def _sample_cells(spec: TraceSpec, seeds) -> Dict[str, np.ndarray]:
     return {
         "lines": lines.astype(np.int32),
         "pcs": pcs.astype(np.int32),
-        "archetype": wp.arch[:, :, 0].astype(np.int32),           # [S, W]
-        "archetype2": wp.arch[:, :, -1].astype(np.int32),
         "oracle_wtype": oracle.astype(np.int32),
-        "archetype_phases": wp.arch.astype(np.int32),             # [S,W,P]
+        **warp_outputs(wp),
     }
 
 

@@ -14,9 +14,12 @@ The lowering contract (DESIGN.md §"Trace generation"):
 
 * ``WarpParams`` holds, per seed and per warp: the archetype of each
   PHASE of the kernel, the lowered per-phase scalars (working-set size,
-  reuse probability, shared fraction), the per-phase working-set line
-  tables (a keyed 12-bit Feistel permutation — distinct lines without
-  replacement), the PC table and the shared pool.
+  reuse probability, shared fraction), the per-phase working-set keys
+  and line tables (a keyed 12-bit Feistel permutation — distinct lines
+  without replacement), the PC table and the shared pool.
+  ``lower_warps`` stops short of the tables, which are the only part
+  larger than O(S·W·P): the CUDA sampler (``kernels/tracegen``)
+  permutes the one index a cell draws instead.
 
 * The **phase schedule** (DESIGN.md §11). A spec without ``phases`` is
   the legacy model: two identical kernel halves, optionally connected by
@@ -33,7 +36,8 @@ The lowering contract (DESIGN.md §"Trace generation"):
   byte-identically to the static legacy spec.
 
 Everything downstream of ``lower`` is a pure function of these arrays,
-which is what lets ``sampler.py`` materialize all cells at once.
+which is what lets ``sampler.py`` materialize all cells at once, and the
+CUDA sampler draw each cell in a thread of its own.
 """
 from __future__ import annotations
 
@@ -310,9 +314,11 @@ class WarpParams:
     ws_size: np.ndarray      # i64[S, W, P] working-set lines per phase
     reuse: np.ndarray        # f64[S, W, P] reuse probability per phase
     shared: np.ndarray       # f64[S, W, P] shared fraction per phase
-    ws_table: np.ndarray     # i64[S, W, P, max_ws] working-set line addrs
+    ws_table: Optional[np.ndarray]  # i64[S, W, P, max_ws] working-set
+                                    # line addrs (None from lower_warps)
     pc_table: np.ndarray     # i32[S, W, n_pcs]
-    pool: np.ndarray         # i64[S, P] shared-pool line addrs
+    pool: np.ndarray         # i64[S, shared_pool_lines] shared-pool addrs
+    ws_key: np.ndarray       # u64[S, W, P] working-set permutation keys
 
     @property
     def n_phases(self) -> int:
@@ -324,10 +330,13 @@ def _inv_cdf(cum: np.ndarray, u: np.ndarray) -> np.ndarray:
                       len(cum) - 1).astype(np.int64)
 
 
-def lower(spec: TraceSpec, seeds) -> Tuple[AddressLayout, WarpParams]:
+def lower_warps(spec: TraceSpec,
+                seeds) -> Tuple[AddressLayout, WarpParams]:
     """Lower the schedule to per-(warp, phase) parameter arrays for every
     seed in ``seeds`` at once (vectorized; the loop generator in ref.py
-    recomputes the same values scalar-wise)."""
+    recomputes the same values scalar-wise): O(S·W·P) work, everything
+    but the working-set tables (``ws_table`` is None), which a cell reads
+    at one index as ``ws_base(w) + perm12(j, ws_key)``."""
     seeds = np.atleast_1d(np.asarray(seeds, np.int64))
     layout = make_layout(spec)
     tab = spec.archetype_table()
@@ -373,12 +382,6 @@ def lower(spec: TraceSpec, seeds) -> Tuple[AddressLayout, WarpParams]:
     reuse = tab[arch, 1]
     shared = tab[arch, 2]
 
-    # working-set tables: keyed Feistel permutation => distinct lines
-    max_ws = max(int(tab[:, 0].max()), 1)
-    j = np.arange(max_ws, dtype=np.uint64)[None, None, None, :]
-    ws_table = layout.ws_base(np.arange(w_n))[None, :, None, None] \
-        + rng.perm12(j, wkeys[:, :, :, None])
-
     pc_flat = w_idx[:, :, None] * np.uint64(spec.n_pcs) \
         + np.arange(spec.n_pcs, dtype=np.uint64)[None, None, :]
     pc_table = rng.randint(rng.stream_key(roots[:, :, None], rng.TAG_PC),
@@ -388,5 +391,23 @@ def lower(spec: TraceSpec, seeds) -> Tuple[AddressLayout, WarpParams]:
     pool = rng.randint(rng.stream_key(roots, rng.TAG_POOL), p_idx,
                        layout.pool_region)
 
-    return layout, WarpParams(arch, ws_size, reuse, shared, ws_table,
-                              pc_table, pool)
+    return layout, WarpParams(arch, ws_size, reuse, shared, None,
+                              pc_table, pool, wkeys)
+
+
+def working_sets(spec: TraceSpec, layout: AddressLayout,
+                 ws_key: np.ndarray) -> np.ndarray:
+    """i64[S, W, P, max_ws]: every warp's working-set lines in each phase,
+    a keyed Feistel permutation (distinct lines) of its private region."""
+    max_ws = max(int(spec.archetype_table()[:, 0].max()), 1)
+    j = np.arange(max_ws, dtype=np.uint64)[None, None, None, :]
+    return layout.ws_base(np.arange(spec.n_warps))[None, :, None, None] \
+        + rng.perm12(j, ws_key[:, :, :, None])
+
+
+def lower(spec: TraceSpec, seeds) -> Tuple[AddressLayout, WarpParams]:
+    """``lower_warps`` with the working-set tables built: what the numpy
+    sampler gathers from."""
+    layout, wp = lower_warps(spec, seeds)
+    return layout, dataclasses.replace(
+        wp, ws_table=working_sets(spec, layout, wp.ws_key))

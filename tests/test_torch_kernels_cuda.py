@@ -18,8 +18,10 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as CS  # noqa: E402
 from repro_torch.core import baselines as BL  # noqa: E402
+from repro_torch.core import tracegen as TG  # noqa: E402
 from repro_torch.core import workloads as WL  # noqa: E402
 from repro_torch.core.engine import SimParams, simulate_sweep  # noqa: E402
+from repro_torch.core.tracegen.sampler import _sample_cells  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cache_pass import ops as CPASS  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DEC  # noqa: E402
@@ -28,6 +30,7 @@ from repro_torch.kernels.flash_attention import ops as FLASH  # noqa: E402
 from repro_torch.kernels.medic_gather import ops as GATHER  # noqa: E402
 from repro_torch.kernels.mlstm import ops as MLSTM  # noqa: E402
 from repro_torch.kernels.rg_lru import ops as RGLRU  # noqa: E402
+from repro_torch.kernels.tracegen import ops as KTG  # noqa: E402
 from repro_torch.kernels.wavefront_scan import ops as WSCAN  # noqa: E402
 
 WAVEFRONT_KERNELS = {"wave_queue": WSCAN.WAVE_QUEUE,
@@ -36,7 +39,7 @@ KERNELS = {**WAVEFRONT_KERNELS, "medic_gather": GATHER.MEDIC_GATHER,
            "decode_attention": DEC.DECODE_ATTENTION,
            "flash_attention": FLASH.FLASH_ATTENTION,
            "rg_lru": RGLRU.RG_LRU, "mlstm": MLSTM.MLSTM,
-           "event_loop": EVL.EVENT_LOOP}
+           "event_loop": EVL.EVENT_LOOP, "tracegen": KTG.TRACEGEN}
 
 
 @pytest.fixture
@@ -512,3 +515,100 @@ def test_event_engine_is_one_launch_per_sweep_on_card(cuda_device):
                          prm=SimParams())
     assert EVL.EVENT_LOOP.launches == before + 1
     assert out["ipc"].device.type == "cuda" and out["ipc"].shape == (2,)
+
+
+# ---- the CUDA sampler (csrc/tracegen.cu) against the numpy sampler -------
+
+def _tracegen_bitwise(spec, seeds, dev):
+    """The kernel's outputs against the numpy sampler's, bitwise, from one
+    launch; the counter takes the cells as the device's."""
+    import numpy as np
+    host = _sample_cells(spec, seeds)
+    launches, cells = KTG.TRACEGEN.launches, dict(TG.CELLS)
+    got = KTG.sample_cells(spec, seeds, dev)
+    torch.cuda.synchronize()
+    assert KTG.TRACEGEN.launches == launches + 1
+    assert TG.CELLS == {"device": cells["device"] + host["lines"].size,
+                        "host": cells["host"]}
+    assert set(got) == set(host)
+    for k, v in host.items():
+        g = got[k].cpu().numpy() if k in KTG.DEVICE_KEYS else got[k]
+        assert g.dtype == v.dtype and g.shape == v.shape, k
+        np.testing.assert_array_equal(g, v, err_msg=f"{spec.name}: {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", WL.WORKLOAD_NAMES)
+def test_tracegen_kernel_paper_workloads_bitwise_on_card(cuda_device, name):
+    _tracegen_bitwise(TG.TraceSpec.from_workload(WL.WORKLOADS[name]),
+                      (0, 2**31 + 11), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TG.STRESS_SPECS))
+def test_tracegen_kernel_stress_specs_bitwise_on_card(cuda_device, name):
+    """The 1k-4k-warp matrix; PHASE2K holds the legacy flip."""
+    _tracegen_bitwise(TG.STRESS_SPECS[name], (3,), cuda_device)
+
+
+@pytest.mark.cuda
+def test_tracegen_kernel_hammer16k_bitwise_on_card(cuda_device):
+    _tracegen_bitwise(TG.SHARD_STRESS_SPECS["HAMMER16K"], (2**31 + 99,),
+                      cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TG.PHASED_SPECS)
+                         + list(TG.PHASED_RECOVER_SPECS))
+def test_tracegen_kernel_phased_specs_bitwise_on_card(cuda_device, name):
+    """Scheduled phases with churn re-keying, in both drift directions."""
+    table = {**TG.PHASED_SPECS, **TG.PHASED_RECOVER_SPECS}
+    _tracegen_bitwise(table[name], (0, 5), cuda_device)
+
+
+@pytest.mark.cuda
+def test_tracegen_kernel_warp_override_bitwise_on_card(cuda_device):
+    from repro_torch.api.scenario import Scenario
+    for sc in (Scenario.workload("BFS", n_warps=200),
+               Scenario.phased("PHASED_RECOVER48", n_warps=97)):
+        _tracegen_bitwise(sc.trace_spec, (1, 2**33 + 3), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["event", "wavefront"])
+def test_experiment_device_traces_match_host_traces_on_card(cuda_device,
+                                                            engine):
+    """The same experiment with its traces drawn on the card and drawn by
+    the numpy sampler (the backend forced to ``"ref"``): every output and
+    every kept trace bitwise, each path shown by the counter. Fig 7 on the
+    event engine; a stress spec on the wavefront engine."""
+    import functools
+    from unittest import mock
+
+    import numpy as np
+    from repro_torch.api import registry as REG
+    from repro_torch.api import scenario as SCN
+    exp = (REG.paper_fig7(seeds=(7, 2**31 + 1)) if engine == "event"
+           else REG.stress(("HAMMER2K",), seeds=(7,)))
+    cells = sum(s.n_seeds * int(np.prod(s.shape)) for s in exp.scenarios)
+    runs = []
+    for backend in ("auto", "ref"):
+        before = dict(TG.CELLS)
+        with mock.patch.object(SCN.KTG, "sample_cells", functools.partial(
+                KTG.sample_cells, backend=backend)):
+            rs = exp.run(keep_traces=True)
+        moved = {k: TG.CELLS[k] - before[k] for k in before}
+        runs.append((rs, moved))
+    (dev, moved_dev), (host, moved_host) = runs
+    assert moved_dev == {"device": cells, "host": 0}
+    assert moved_host == {"device": 0, "host": cells}
+    for blk_d, blk_h in zip(dev._blocks, host._blocks):
+        assert blk_d.entries == blk_h.entries
+        for k, v in blk_h.metrics.items():
+            np.testing.assert_array_equal(blk_d.metrics[k], v, err_msg=k)
+        for td, th in zip(blk_d.traces, blk_h.traces):
+            for k, v in th.items():
+                assert isinstance(td[k], (np.ndarray, np.generic)), k
+                assert td[k].dtype == v.dtype
+                assert np.shape(td[k]) == np.shape(v)
+                np.testing.assert_array_equal(td[k], v, err_msg=k)
